@@ -30,6 +30,26 @@ each of which exits non-zero on failure:
                   stream equals dense greedy decoding (same near-tie rule)
   4. kv dtypes    the same model with int8 and bf16 pools on a shorter
                   script; top-1 agreement with float32 (quant_parity_probe)
+  5. codegen      the Executor path of the three fusion-codegen template
+                  nets (elementwise, scale_bias_act, reduction) at
+                  (4096, 4096): simple_bind + forward + backward against
+                  the plain chain under autograd, each template's
+                  generated kernel launched; then each kernel against its
+                  plain version in float32 and bf16, with its time, bound
+                  and plain time
+  6. training     Module.fit on Inception-ResNet-v2 at full width and
+                  depth (1000 classes, batch 32, 3x299x299, NCHW,
+                  float32, TF32 off), SGD lr 0.1 momentum 0.9 wd 1e-4,
+                  Xavier(gaussian, in, 2), metrics acc and ce, 10 steps
+                  on synthetic data from seed 0. Checks: 40 fusion groups
+                  lowered and none fallen back, 40 generated-kernel
+                  launches per step, finite loss, moved weights, and the
+                  first step's outputs and gradients equal to a bind with
+                  MXNET_FUSION_CODEGEN=0 (every group op by op)
+  7. train kernels each of the bind's four group kernels (block35,
+                  block17, block8, b8_final) against its plain version at
+                  the training shapes in float32 and bf16, with its time,
+                  bound, plain time and library time
 
 The last two lines of standard output are one JSON object with every
 kernel's numbers and one JSON object naming the device.
@@ -51,7 +71,17 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
+# paged attention against its plain version; the generated fusion
+# kernels are held to their plain chain by passes.codegen.parity_error
 TOL = {"float32": 1e-4, "bf16": 2e-3, "int8": 1e-4}
+# fused against op-by-op on the first training step: the fused kernels
+# round exactly as the ops do, and cuDNN's weight gradients accumulate
+# with atomics in an order that changes from run to run, so each tensor
+# agrees to this share of its largest magnitude
+TRAIN_PARITY_RTOL = 1e-3
+
+TRAIN_BATCH = 32
+TRAIN_STEPS = 10
 NEAR_TIE = 1e-3
 
 SERVE_CFG = dict(vocab=32000, d_model=1024, n_layers=16, n_heads=16,
@@ -292,6 +322,29 @@ def _next_logits(engine, ctx):
         engine.allocator.free(table)
 
 
+def _device_time(torch, prof, wall_us, top, label):
+    """Device busy time of a profiled window, logged with its top
+    kernels: the summed time of the events that ran on the card
+    (kernels, copies, sets), not of the host operators that launched
+    them, whose device time would count the same kernels again."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0]
+    busy_us = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    out = {"wall_us": wall_us, "device_us": busy_us,
+           "busy_share": busy_us / wall_us,
+           "top": [{"name": n[:80], "device_us": t, "count": c}
+                   for n, t, c in rows[:top]]}
+    log(f"profile: {label} {wall_us!r} us, device busy {busy_us!r} us "
+        f"({out['busy_share']!r})")
+    for r in out["top"]:
+        log(f"profile:   {r['device_us']!r:>12} us  x{r['count']:<6} "
+            f"{r['name']}")
+    return out
+
+
 def _profile_window(torch, model, prompts):
     """torch.profiler over 8 concurrent requests of 16 new tokens on a
     warm model: device busy share of the window and the kernels with
@@ -303,21 +356,7 @@ def _profile_window(torch, model, prompts):
         _serve_concurrent(model, prompts, 16)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.self_device_time_total > 0]
-    busy_us = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
-    out = {"wall_us": wall_us, "device_us": busy_us,
-           "busy_share": busy_us / wall_us,
-           "top": [{"name": n[:80], "device_us": t, "count": c}
-                   for n, t, c in rows[:12]]}
-    log(f"profile: window {wall_us!r} us, device busy {busy_us!r} us "
-        f"({out['busy_share']!r})")
-    for r in out["top"]:
-        log(f"profile:   {r['device_us']!r:>12} us  x{r['count']:<6} "
-            f"{r['name']}")
-    return out
+    return _device_time(torch, prof, wall_us, 12, "window")
 
 
 def _top2_gap(logits):
@@ -499,6 +538,358 @@ def phase_kv_dtypes(torch, decoder, cfg, dev):
     return res
 
 
+# ------------------------------------------------------------ phase 5
+def _template_nets(mx):
+    """The template nets of the JAX package's codegen tests
+    (tests/test_pallas_codegen.py:49-68)."""
+    sym = mx.sym
+    x = sym.Variable("x")
+    elem = sym.square(sym.sigmoid(x)) * 0.5
+    x, g, b = sym.Variable("x"), sym.Variable("g"), sym.Variable("b")
+    sba = sym.Activation(sym.elemwise_add(sym.elemwise_mul(x, g), b),
+                         act_type="tanh")
+    x, y = sym.Variable("x"), sym.Variable("y")
+    red = sym.sum(sym.relu(x) * y)
+    return {"elementwise": elem, "scale_bias_act": sba, "reduction": red}
+
+
+def _group_bound(torch, group, ins):
+    """Least time for one launch: each input read once and the output
+    written once over the HBM rate, or one float32 operation per op of
+    the chain per element over the float32 rate."""
+    n = ins[0].numel()
+    out_bytes = (int(np.prod(group.out_shape))
+                 * torch.finfo(group.out_dtype).bits // 8)
+    nbytes = sum(x.numel() * x.element_size() for x in ins) + out_bytes
+    flops = n * len(group.spec)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def _library_call(torch, group, ins):
+    """One PyTorch call computing the group's function, where there is
+    one: `net + s * proj` is torch.add(net, proj, alpha=s)."""
+    ops = [op for op, _, _ in group.spec]
+    if ops == ["_mul_scalar", "elemwise_add"]:
+        (_, mul_p, mul_w), (_, _, add_w) = group.spec
+        other = next(w for w in add_w if w[0] == "x")
+        alpha = float(mul_p["scalar"])
+        return lambda: torch.add(ins[other[1]], ins[mul_w[0][1]],
+                                 alpha=alpha)
+    return None
+
+
+def _seeded(torch, avals, seed, dev, dtype=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev,
+                        dtype=torch.float32).to(dtype or d)
+            for s, d in avals]
+
+
+def _kernel_row(torch, passes, name, group, flush, seed):
+    """One group's kernel against its plain version in float32 and bf16
+    at its bind shapes, with its times and bound."""
+    dev = torch.device("cuda")
+    row = {"name": name, "digest": group.digest,
+           "template": group.template,
+           "shapes": [list(s) for s, _ in group.in_avals]}
+    ins = _seeded(torch, group.in_avals, seed, dev)
+    got = group.kernel(*ins, out_shape=group.out_shape, count=False)
+    torch.cuda.synchronize()
+    check(torch.isfinite(got).all().item(), f"{name}: non-finite output")
+    err, ok = passes.parity_error(group, ins, got)
+    check(ok, f"{name} float32: max abs err {err!r} beyond the parity "
+          "tolerance (passes.codegen.parity_error)")
+    bf = passes.build_groups(
+        [(group.spec, [(s, torch.bfloat16) for s, _ in group.in_avals])],
+        dev)[0]
+    ins_bf = [x.to(torch.bfloat16) for x in ins]
+    got_bf = bf.kernel(*ins_bf, out_shape=bf.out_shape, count=False)
+    err_bf, ok = passes.parity_error(bf, ins_bf, got_bf)
+    check(ok, f"{name} bf16: max abs err {err_bf!r} beyond the parity "
+          "tolerance")
+    row["ms"] = _time_ms(torch, lambda: group.kernel(
+        *ins, out_shape=group.out_shape, count=False), flush)
+    row["plain_ms"] = _time_ms(torch, lambda: group.plain_fn(*ins), flush)
+    row["bf16_ms"] = _time_ms(torch, lambda: bf.kernel(
+        *ins_bf, out_shape=bf.out_shape, count=False), flush)
+    lib = _library_call(torch, group, ins)
+    row["library_ms"] = None if lib is None else _time_ms(torch, lib, flush)
+    if lib is not None:
+        row["library_max_abs_err"] = (lib() - got).abs().max().item()
+    row["bound_ms"], row["bound_by"], row["bytes"] = _group_bound(
+        torch, group, ins)
+    row["bf16_bound_ms"] = _group_bound(torch, bf, ins_bf)[0]
+    row["max_abs_err"] = err
+    row["bf16_max_abs_err"] = err_bf
+    log(f"codegen {name:15s} {group.template:14s} {row['shapes'][0]}: "
+        f"err {err!r} bf16 err {err_bf!r} ms {row['ms']!r} plain_ms "
+        f"{row['plain_ms']!r} bf16_ms {row['bf16_ms']!r} library_ms "
+        f"{row['library_ms']!r} bound_ms {row['bound_ms']!r} "
+        f"({row['bound_by']})")
+    return row
+
+
+def phase_codegen(torch, mx, side=4096):
+    """The Executor path of the template nets, then their kernels."""
+    from mxnet_tpu_torch import passes
+    from mxnet_tpu_torch.symbol import _topo
+
+    dev = torch.device("cuda")
+    passes.clear_memo()
+    nets = _template_nets(mx)
+    res, groups = {}, {}
+    t0 = time.perf_counter()
+    execs = {name: net.simple_bind(mx.gpu(0), **{
+        n: (side, side) for n in net.list_arguments()})
+        for name, net in nets.items()}
+    res["bind_s"] = time.perf_counter() - t0
+    stats = passes.fusion_stats()
+    check(stats["groups_lowered"] == 3 and stats["groups_fallback"] == 0,
+          f"template nets: {stats}")
+    passes.reset_launch_counts()
+    for seed, (name, exe) in enumerate(execs.items()):
+        names = exe._arg_names
+        vals = _seeded(torch, [((side, side), torch.float32)] * len(names),
+                       100 + seed, dev)
+        for n, v in zip(names, vals):
+            exe.arg_dict[n][:] = v
+        exe.forward(is_train=True)
+        exe.backward()
+        torch.cuda.synchronize()
+        (group, ext), = exe._codegen_plan.fused.values()
+        groups[name] = group
+        # the group's external inputs are the net's variables
+        nodes = _topo(exe._opt_symbol._outputs)
+        by_name = dict(zip(names, vals))
+        ext_names = [nodes[i].name for i, _ in ext]
+        ins = [by_name[n] for n in ext_names]
+        out = exe.outputs[0].data
+        err, ok = passes.parity_error(group, ins, out)
+        check(ok, f"{name}: executor output != plain chain ({err!r})")
+        # the backward is the plain chain's own, recomputed: the same ops
+        # on the same inputs
+        leaves = [v.clone().requires_grad_(True) for v in ins]
+        want = group.plain_fn(*leaves)
+        grads = torch.autograd.grad(want, leaves, torch.ones_like(want))
+        for n, g in zip(ext_names, grads):
+            check(torch.allclose(exe.grad_dict[n].data, g, rtol=1e-6,
+                                 atol=1e-6),
+                  f"{name}: gradient of {n} != plain chain's")
+    launches = passes.launch_counts()
+    res["launches"] = launches
+    check(all(launches[t] >= 1 for t in nets),
+          f"a template's kernel never launched on the Executor path: "
+          f"{launches}")
+    log(f"codegen: Executor path of the template nets at ({side}, {side}):"
+        f" bind {res['bind_s']!r} s, launches {launches}")
+    del execs
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    res["rows"] = [_kernel_row(torch, passes, name, g, flush, 7)
+                   for name, g in groups.items()]
+    del flush
+    torch.cuda.empty_cache()
+    log("phase 5 ok: codegen templates agree with the plain chain")
+    return res
+
+
+# ------------------------------------------------------------ phase 6
+def _train_data(mx, n_batches, batch):
+    """Synthetic ImageNet batches as examples/image_classification/
+    train_imagenet.py builds them (seed 0)."""
+    rs = np.random.RandomState(0)
+    x = rs.uniform(-1, 1, (n_batches * batch, 3, 299, 299)).astype(
+        np.float32)
+    y = rs.randint(0, 1000, (n_batches * batch,)).astype(np.float32)
+    return mx.io.NDArrayIter(x, y, batch_size=batch, shuffle=False,
+                             label_name="softmax_label")
+
+
+_INIT = dict(rnd_type="gaussian", factor_type="in", magnitude=2)
+_OPT = (("learning_rate", 0.1), ("momentum", 0.9), ("wd", 1e-4))
+
+
+def _reference_step(torch, mx, net, batch, shapes):
+    """Outputs and gradients of the first step with every fusion group
+    run op by op (MXNET_FUSION_CODEGEN=0), from the same initial
+    weights."""
+    os.environ["MXNET_FUSION_CODEGEN"] = "0"
+    try:
+        mod = mx.mod.Module(net, context=mx.gpu(0))
+        mod.bind(*shapes)
+        check(all(d.startswith("fallback:disabled") for _, d in
+                  mod._exec_group.execs[0]._codegen_plan.cache_component),
+              "MXNET_FUSION_CODEGEN=0 left a group fused")
+        mx.random.seed(0)
+        mod.init_params(initializer=mx.init.Xavier(**_INIT))
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        exe = mod._exec_group.execs[0]
+        outs = [o.data.clone() for o in exe.outputs]
+        grads = {n: g.data.clone() for n, g in exe.grad_dict.items()
+                 if g is not None and exe._grad_req.get(n) != "null"}
+    finally:
+        del os.environ["MXNET_FUSION_CODEGEN"]
+    del mod, exe
+    torch.cuda.empty_cache()
+    return outs, grads
+
+
+def _profile_step(torch, mod, batch):
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(2):
+        mod.forward_backward(batch)
+        mod.update()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return _device_time(torch, prof, wall_us, 15, "step")
+
+
+def phase_training(torch, mx, profile=False):
+    from mxnet_tpu_torch import passes
+    from mxnet_tpu_torch.models import get_inception_resnet_v2
+
+    res = {}
+    net = get_inception_resnet_v2(num_classes=1000)
+    data = _train_data(mx, TRAIN_STEPS, TRAIN_BATCH)
+    shapes = (data.provide_data, data.provide_label)
+    first = next(iter(data))
+    data.reset()
+    ref_outs, ref_grads = _reference_step(torch, mx, net, first, shapes)
+
+    passes.reset_fusion_stats()
+    passes.clear_memo()
+    torch.cuda.reset_peak_memory_stats()
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    t0 = time.perf_counter()
+    mod.bind(*shapes)
+    res["cold_bind_s"] = time.perf_counter() - t0
+    exe = mod._exec_group.execs[0]
+    plan = exe._codegen_plan
+    stats = passes.fusion_stats()
+    res["fusion_stats"] = stats
+    lowered = [d for _, d in plan.cache_component if d.startswith("kernel:")]
+    check(len(plan.cache_component) == 40 and len(lowered) == 40,
+          f"expected 40 fusion groups lowered, plan {plan.cache_component}")
+    check(stats["groups_fallback"] == 0 and stats["parity_failures"] == 0,
+          f"fusion stats {stats}")
+    log(f"training: cold bind {res['cold_bind_s']!r} s (passes, nvcc, "
+        f"parity), {len(lowered)} groups lowered, fusion stats {stats}")
+    mx.random.seed(0)
+    mod.init_params(initializer=mx.init.Xavier(**_INIT))
+    w0 = exe.arg_dict["b35_1_proj_conv_weight"].data.clone()
+
+    step_ends, captured = [], {}
+
+    def on_batch(param):
+        if param.nbatch == 0:
+            captured["outs"] = [o.data.clone() for o in exe.outputs]
+            captured["grads"] = {n: exe.grad_dict[n].data.clone()
+                                 for n in ref_grads}
+        torch.cuda.synchronize()
+        step_ends.append(time.perf_counter())
+
+    metric = mx.metric.create(["acc", "ce"])
+    speedometer = mx.callback.Speedometer(TRAIN_BATCH, frequent=5)
+    passes.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(data, num_epoch=1, eval_metric=metric, optimizer="sgd",
+            optimizer_params=_OPT, initializer=mx.init.Xavier(**_INIT),
+            batch_end_callback=[on_batch, speedometer])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = passes.launch_counts()
+    res["launches"] = launches
+    n_steps = len(step_ends)
+    check(n_steps == TRAIN_STEPS, f"fit ran {n_steps} steps")
+    check(sum(launches.values()) == 40 * n_steps,
+          f"generated-kernel launches {launches} != 40 x {n_steps} steps")
+    check(launches["scale_bias_act"] == 39 * n_steps
+          and launches["elementwise"] == n_steps,
+          f"launches per template {launches}")
+
+    values = dict(metric.get_name_value())
+    res["metrics"] = values
+    check(np.isfinite(values["cross-entropy"]),
+          f"non-finite loss {values}")
+    w1 = exe.arg_dict["b35_1_proj_conv_weight"].data
+    moved = (w1 - w0).abs().max().item()
+    check(moved > 0, "b35_1_proj_conv_weight did not move")
+
+    def rel_err(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    worst = {"outputs": max(rel_err(a, b) for a, b in
+                            zip(captured["outs"], ref_outs))}
+    worst.update({n: rel_err(captured["grads"][n], g)
+                  for n, g in ref_grads.items()})
+    bad = {n: r for n, r in worst.items() if not r <= TRAIN_PARITY_RTOL}
+    name = max(worst, key=lambda n: worst[n] if n not in bad else np.inf)
+    rel = worst[name] if not bad else next(iter(bad.values()))
+    res["fused_vs_op_by_op_worst"] = {"tensor": name, "rel": rel}
+    check(not bad, f"first step fused vs op by op: {len(bad)} tensors "
+          f"differ by more than {TRAIN_PARITY_RTOL} of their max "
+          f"magnitude, e.g. {dict(list(bad.items())[:5])}")
+
+    starts = [t0] + step_ends[:-1]
+    step_ms = [(e - s) * 1e3 for s, e in zip(starts, step_ends)]
+    steady = step_ms[1:]
+    res.update({
+        "fit_s": fit_s, "step_ms": step_ms,
+        "step_ms_p50": float(np.percentile(steady, 50)),
+        "step_ms_p95": float(np.percentile(steady, 95)),
+        "images_per_s": TRAIN_BATCH * len(steady) / (sum(steady) / 1e3),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "params": int(sum(a.size for n, a in exe.arg_dict.items()
+                          if n not in ("data", "softmax_label"))),
+        "weight_moved_max": moved})
+    log(f"training: {n_steps} steps in {fit_s!r} s, first step "
+        f"{step_ms[0]!r} ms, steady step p50 {res['step_ms_p50']!r} ms p95 "
+        f"{res['step_ms_p95']!r} ms, {res['images_per_s']!r} images/s, "
+        f"peak memory {res['peak_mem_bytes']} B, {res['params']} "
+        f"parameters, metrics {values}, launches {launches}, fused vs op "
+        f"by op worst {name} {rel!r}")
+    groups = {}
+    for group, _ in plan.fused.values():
+        groups.setdefault(group.digest, group)
+    res["launches_per_step_by_digest"] = {
+        d: g.kernel.launches / n_steps for d, g in groups.items()}
+    if profile:
+        res["profile"] = _profile_step(torch, mod, first)
+    log("phase 6 ok: Inception-ResNet-v2 trains through Module.fit")
+    return res, groups
+
+
+# ------------------------------------------------------------ phase 7
+def phase_train_kernels(torch, groups, launches_per_digest):
+    from mxnet_tpu_torch import passes
+
+    dev = torch.device("cuda")
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    names = {320: "block35", 1088: "block17"}
+    rows = []
+    for seed, (digest, group) in enumerate(sorted(groups.items())):
+        ch = group.in_avals[0][0][1]
+        name = ("b8_final" if group.template == "elementwise"
+                else names.get(ch, "block8"))
+        row = _kernel_row(torch, passes, name, group, flush, 200 + seed)
+        row["launches_per_step"] = launches_per_digest[digest]
+        rows.append(row)
+    del flush
+    torch.cuda.empty_cache()
+    log("phase 7 ok: training kernels agree with the plain chain")
+    return rows
+
+
 # -------------------------------------------------------------- main
 def _kernel_line(rows, launches_float, launches_int8):
     def pick(kv):
@@ -521,7 +912,39 @@ def _kernel_line(rows, launches_float, launches_int8):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
-    return {"kernels": out}
+    return out
+
+
+# the Pallas kernels the generated CUDA kernels replace
+_CODEGEN_REPLACES = {
+    "elementwise": "mxnet_tpu/passes/pallas_codegen.py:408",
+    "scale_bias_act": "mxnet_tpu/passes/pallas_codegen.py:444",
+    "reduction": "mxnet_tpu/passes/pallas_codegen.py:455",
+}
+
+
+def _codegen_line(template_rows, train_rows, train_launches,
+                  executor_launches):
+    """B1 and B2 at the training shapes (for B2 the group with the most
+    launches per step), launched on the training path; B3 at the
+    template net's shape, launched on the Executor path."""
+    out = []
+    for template in ("elementwise", "scale_bias_act", "reduction"):
+        if template == "reduction":
+            r = next(x for x in template_rows if x["template"] == template)
+            launches = executor_launches[template]
+        else:
+            r = max((x for x in train_rows if x["template"] == template),
+                    key=lambda x: x["launches_per_step"])
+            launches = train_launches[template]
+        out.append({
+            "name": f"fusion_{template}", "route": "cuda",
+            "source": "mxnet_tpu_torch/passes/codegen.py",
+            "replaces": _CODEGEN_REPLACES[template], "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return out
 
 
 def main():
@@ -529,7 +952,8 @@ def main():
     ap.add_argument("--out", help="also write every number as JSON here")
     ap.add_argument("--profile", action="store_true",
                     help="also run torch.profiler over a serving window "
-                    "(phase 3) and print where the device time goes")
+                    "(phase 3) and a training step (phase 6) and print "
+                    "where the device time goes")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -538,7 +962,7 @@ def main():
         fail("torch.cuda.is_available() is false: this check needs one "
              "CUDA card")
     try:
-        import mxnet_tpu_torch  # noqa: F401
+        import mxnet_tpu_torch as mx
         from mxnet_tpu_torch import decoding as dec
     except ImportError as e:
         fail(f"mxnet_tpu_torch is not importable ({e}); run from the "
@@ -548,40 +972,48 @@ def main():
         "the port imported jax or mxnet_tpu")
 
     card, build_s = phase_environment(torch)
-    t = time.perf_counter()
-    rows = phase_kernels(torch)
-    kernels_s = time.perf_counter() - t
+    report = {"card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "build_s": build_s,
+              "phase_s": {}}
 
+    def run(key, fn, *a, **kw):
+        t = time.perf_counter()
+        out = report[key] = fn(*a, **kw)
+        report["phase_s"][key] = time.perf_counter() - t
+        return out
+
+    rows = run("kernel_rows", phase_kernels, torch)
     cfg = dec.DecoderConfig(**SERVE_CFG)
     t = time.perf_counter()
     decoder = dec.params_from_jax(dec.init_decoder_params(cfg, seed=0),
                                   cfg, torch.device("cuda")).eval()
     log(f"weights: {sum(p.numel() for p in decoder.parameters())} "
         f"parameters in {time.perf_counter() - t!r} s")
-    t = time.perf_counter()
-    serving, _ = phase_serving(torch, decoder, cfg, "cuda",
-                               profile=args.profile)
-    serving_s = time.perf_counter() - t
-    t = time.perf_counter()
-    kv = phase_kv_dtypes(torch, decoder, cfg, "cuda")
-    kv_s = time.perf_counter() - t
+    serving = run("serving", lambda: phase_serving(
+        torch, decoder, cfg, "cuda", profile=args.profile)[0])
+    kv = run("kv_dtypes", phase_kv_dtypes, torch, decoder, cfg, "cuda")
+    del decoder
+    torch.cuda.empty_cache()
+    codegen = run("codegen", phase_codegen, torch, mx)
+    training, groups = run("training", phase_training, torch, mx,
+                           profile=args.profile)
+    report["training"] = training
+    train_rows = run("train_kernels", phase_train_kernels, torch, groups,
+                     training["launches_per_step_by_digest"])
 
-    line = _kernel_line(rows, serving["launches"]["paged_attention_float"],
-                        kv["int8"]["launches"]["paged_attention_int8"])
-    total = time.perf_counter() - t_start
+    line = {"kernels": _kernel_line(
+        rows, serving["launches"]["paged_attention_float"],
+        kv["int8"]["launches"]["paged_attention_int8"])
+        + _codegen_line(codegen["rows"], train_rows, training["launches"],
+                        codegen["launches"])}
+    report["kernels"] = line["kernels"]
+    report["phase_s"]["total"] = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": card, "torch": torch.__version__,
-                       "cuda": torch.version.cuda, "build_s": build_s,
-                       "kernel_rows": rows, "serving": serving,
-                       "kv_dtypes": kv, "kernels": line["kernels"],
-                       "phase_s": {"kernels": kernels_s,
-                                   "serving": serving_s, "kv": kv_s,
-                                   "total": total}},
-                      f, indent=1, sort_keys=True, default=str)
-    log(f"total {total!r} s")
+            json.dump(report, f, indent=1, sort_keys=True, default=str)
+    log(f"total {report['phase_s']['total']!r} s")
     log(card)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

@@ -2,15 +2,47 @@
 H100.
 
 The package imports torch and numpy only; it never imports jax or
-mxnet_tpu. Its slice so far is continuous-decoding serving
-(`decoding.DecodedModel`), whose paged attention is a hand-written
-CUDA kernel for Hopper (`csrc/paged_attention.cu`, built with nvcc at
-first use). Entry points run on the CUDA device unless the caller names
-another one.
+mxnet_tpu. Its slices so far:
+
+  decode serving     `decoding.DecodedModel`, whose paged attention is a
+                     hand-written CUDA kernel (`csrc/paged_attention.cu`)
+  symbolic training  Symbol -> graph passes -> Executor -> Module.fit
+                     (`symbol`, `passes`, `executor`, `module`), whose
+                     fusion groups run as generated CUDA kernels
+                     (`passes/codegen.py`, `csrc/fusion_codegen.cuh`)
+
+Kernels are built with nvcc at first use. Entry points run on the CUDA
+device unless the caller names another one (`mx.cpu()`, device="cpu").
+
+    import mxnet_tpu_torch as mx
+    net = mx.models.get_inception_resnet_v2()
+    mod = mx.mod.Module(net)          # the card
+    mod.fit(mx.io.NDArrayIter(x, y, batch_size=32), num_epoch=1)
 """
 from . import base, context, decoding, serving, telemetry, utils
+from . import random  # noqa: F401
+from . import ndarray  # noqa: F401
+from . import ndarray as nd  # noqa: F401
+from . import ops  # noqa: F401
+from . import symbol  # noqa: F401
+from . import symbol as sym  # noqa: F401
+from . import passes  # noqa: F401
+from . import executor  # noqa: F401
+from . import initializer  # noqa: F401
+from . import initializer as init  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import lr_scheduler  # noqa: F401
+from . import metric  # noqa: F401
+from . import io  # noqa: F401
+from . import callback  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
+from . import models  # noqa: F401
 from .base import MXNetError
-from .context import cpu, gpu
+from .context import Context, cpu, current_context, gpu
 
-__all__ = ["MXNetError", "base", "context", "cpu", "decoding", "gpu",
-           "serving", "telemetry", "utils"]
+__all__ = ["Context", "MXNetError", "base", "callback", "context", "cpu",
+           "current_context", "decoding", "executor", "gpu", "init",
+           "initializer", "io", "lr_scheduler", "metric", "mod", "models",
+           "module", "nd", "ndarray", "ops", "optimizer", "passes", "random",
+           "serving", "sym", "symbol", "telemetry", "utils"]

@@ -2,12 +2,12 @@
 
 Every supported MXNET_* variable is declared once in a registry with
 type, default and help, and read through the typed getter
-`getenv(name)`. Only the knobs the decode-serving slice reads are
-registered here.
+`getenv(name)`. Only the knobs the ported slices read (decode serving,
+the graph passes and the fusion codegen) are registered here.
 
-`MXNET_DECODE_KERNEL` has no counterpart: the device of the tensors
-decides the attention implementation (the hand-written CUDA kernel on
-a CUDA tensor, the plain PyTorch version on a CPU tensor).
+`MXNET_DECODE_KERNEL` and `MXNET_FUSION_INTERPRET` have no counterpart:
+the device of the tensors decides between a hand-written or generated
+CUDA kernel (CUDA tensor) and its plain PyTorch version (CPU tensor).
 """
 from __future__ import annotations
 
@@ -139,4 +139,28 @@ register_env(
     "keeps a device-side count of non-finite logits on active rows "
     "and of int8 K/V clips, drained into decodingStats "
     "(nonfinite_logit_*, quant_clip_*).",
+)
+register_env(
+    "MXNET_GRAPH_PASSES", str, "1",
+    "graph-optimization pass pipeline run on every bind "
+    "(mxnet_tpu_torch.passes): '1'/'on' = the default pipeline (dce, "
+    "fold, cse, canonicalize, fusion_hints, codegen); '0'/'off' "
+    "bypasses it; a comma list selects and orders passes.",
+)
+register_env(
+    "MXNET_PASS_FOLD_MAX", int, 65536,
+    "constant folding's per-tensor element cap: a constant subgraph "
+    "whose result exceeds this many elements stays in the graph.",
+)
+register_env(
+    "MXNET_FUSION_CODEGEN", bool, True,
+    "fusion codegen (passes.codegen): lower __fusion_group__ chains to "
+    "generated CUDA kernels at bind time. 0 = every group runs op by op "
+    "(counted as fallback 'disabled').",
+)
+register_env(
+    "MXNET_FUSION_MIN_GROUP", int, 2,
+    "fusion codegen: minimum elementwise ops in a fusion group before a "
+    "kernel is generated; smaller groups fall back with reason "
+    "'too_small'.",
 )

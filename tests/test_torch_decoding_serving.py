@@ -215,6 +215,9 @@ def test_import_rule():
     code = (
         "import sys, mxnet_tpu_torch, mxnet_tpu_torch.kernels\n"
         "from mxnet_tpu_torch import decoding\n"
+        "import mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor\n"
+        "import mxnet_tpu_torch.module, mxnet_tpu_torch.passes\n"
+        "import mxnet_tpu_torch.models\n"
         "bad = [m for m in sys.modules if m == 'jax' or m == 'mxnet_tpu'"
         " or m.startswith(('jax.', 'jaxlib', 'mxnet_tpu.'))]\n"
         "print(bad)\n"
