@@ -50,9 +50,32 @@ each of which exits non-zero on failure:
                   block17, block8, b8_final) against its plain version at
                   the training shapes in float32 and bf16, with its time,
                   bound, plain time and library time
+  8. attention    the long-context path, parallel.attention(impl="flash"):
+                  forward and backward at the transformer's shape (8,
+                  2048, 8, 64) float32 causal against autograd through
+                  attention_reference, and a (1, 16384, 8, 64) causal
+                  forward with its peak memory beside the plain
+                  version's (the flash kernel launched on this path and
+                  counted); then the kernel against its plain version at
+                  (8, 2048, 8, 64) causal and not in float32 and bf16, the
+                  test shape (2, 64, 4, 16) and Tq != Tk (256 vs 1024),
+                  with its time, bound, plain time and the time of
+                  scaled_dot_product_attention with the same mask
+  9. transformer  models.get_transformer at tools/bench_transformer.py's
+                  width (d_model 512, 8 heads, d_ff 1024, 4 layers, causal;
+                  8,388,608 parameters), batch 8 x 2048 tokens of seeded
+                  randn data and labels, Module.bind / init_params(Xavier())
+                  / init_optimizer(adam, lr 1e-4, kvstore local), 10 steps
+                  of forward_backward + update in float32 (TF32 off).
+                  Checks: finite MSE, moved weights, the first step's
+                  outputs and gradients equal to a bind of the graph
+                  without the pass pipeline (MXNET_GRAPH_PASSES=0), and no
+                  flash-kernel launch (the tower's RingAttention op is
+                  plain attention on one device, as in the JAX package)
 
-The last two lines of standard output are one JSON object with every
-kernel's numbers and one JSON object naming the device.
+The last two lines of standard output are
+one JSON object with every kernel's numbers and one JSON object naming
+the device.
 """
 from __future__ import annotations
 
@@ -70,6 +93,8 @@ import numpy as np
 # outside the tensor cores, the rate the kernels' arithmetic runs at
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# dense bf16/fp16 tensor-core rate: the card's bound for work in those types
+BF16_FLOPS_PER_S = 989e12
 
 # paged attention against its plain version; the generated fusion
 # kernels are held to their plain chain by passes.codegen.parity_error
@@ -83,6 +108,24 @@ TRAIN_PARITY_RTOL = 1e-3
 TRAIN_BATCH = 32
 TRAIN_STEPS = 10
 NEAR_TIE = 1e-3
+
+# flash attention against its plain version (which repeats the kernel's
+# blockwise rounding of p): the largest absolute difference beyond one ulp
+# of the output's type at the element's magnitude, as a share of the plain
+# output's largest magnitude. The kernel sums in another order, and each
+# version casts its float32 result to the output type once, so where the
+# two float32 values straddle a rounding boundary the casts differ by one
+# ulp (2^-7 of the element in bf16), whatever the kernel's accuracy.
+ATTN_TOL = {"float32": 1e-4, "bf16": 2e-3}
+ATTN_SHAPE = (8, 2048, 8, 64)          # the transformer's (B, T, H, D)
+LONG_SHAPE = (1, 16384, 8, 64)
+# the transformer of tools/bench_transformer.py (docstring width, defaults)
+TOWER_CFG = dict(d_model=512, num_heads=8, d_ff=1024, num_layers=4)
+TOWER_BATCH, TOWER_SEQ, TOWER_STEPS = 8, 2048, 10
+# Module against the op-by-op bind on the first step: the same ops on the
+# same inputs (the pass pipeline only renames and reorders nodes), so each
+# tensor agrees to this share of its largest magnitude
+TOWER_PARITY_RTOL = 1e-4
 
 SERVE_CFG = dict(vocab=32000, d_model=1024, n_layers=16, n_heads=16,
                  d_ff=4096, max_len=2048)
@@ -890,6 +933,331 @@ def phase_train_kernels(torch, groups, launches_per_digest):
     return rows
 
 
+# ------------------------------------------------------------ phase 8
+def _attn_inputs(torch, b, tq, tk, h, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, t, h, d, generator=g, device="cuda").to(dtype)
+            for t in (tq, tk, tk)]
+
+
+def _attn_bound(q, k, causal):
+    """Least time of one forward: q, k, v read once and o written once
+    over the HBM rate, or 4 D flops per (query, key) pair the top-left
+    causal mask keeps over the rate of the inputs' type (float32 outside
+    the tensor cores; bf16 on them)."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if causal:
+        n = min(tq, tk)
+        pairs = n * (n + 1) // 2 + max(tq - tk, 0) * tk
+    else:
+        pairs = tq * tk
+    flops = 4 * b * h * d * pairs
+    nbytes = (2 * tq + 2 * tk) * b * h * d * q.element_size()
+    rate = FP32_FLOPS_PER_S if q.element_size() == 4 else BF16_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, flops)
+
+
+def _sdpa(torch, q, k, v, causal):
+    """The library yardstick: scaled_dot_product_attention on (B, H, T, D)
+    views, is_causal (top-left, the kernel's mask); timed only."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal)
+
+
+def _rel(torch, out, ref):
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+def _rel_beyond_ulp(torch, out, ref):
+    """max(|out - ref| - ulp(ref), 0) / max|ref|, ulp in out's type."""
+    eps = torch.finfo(out.dtype).eps
+    ref32 = ref.float()
+    mag = ref32.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = eps * torch.exp2(torch.floor(torch.log2(mag)))
+    excess = ((out.float() - ref32).abs() - ulp).clamp_min(0)
+    return (excess.max() / ref32.abs().max()).item()
+
+
+def _attn_row(torch, tattn, name, shape, causal, kv, flush, seed):
+    b, tq, tk, h, d = shape
+    dtype = torch.float32 if kv == "float32" else torch.bfloat16
+    q, k, v = _attn_inputs(torch, b, tq, tk, h, d, dtype, seed)
+    out = tattn.flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref = tattn.flash_forward_plain(q, k, v, causal)
+    check(torch.isfinite(out).all().item(), f"flash {name}: non-finite")
+    rel = _rel_beyond_ulp(torch, out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    check(rel <= ATTN_TOL[kv], f"flash {name} {kv} causal={causal}: error "
+          f"beyond one ulp {rel!r} of the output's max > {ATTN_TOL[kv]}")
+    lib_err = _rel(torch, _sdpa(torch, q, k, v, causal).transpose(1, 2),
+                   ref)
+    reps = 20 if tq * tk <= 2048 * 2048 else 5
+    row = {"name": name, "shape": [b, tq, tk, h, d], "causal": causal,
+           "kv": kv, "max_abs_err": err, "rel_err": rel,
+           "library_rel_err": lib_err,
+           "ms": _time_ms(torch, lambda: tattn.flash_forward(
+               q, k, v, causal), flush, reps),
+           "plain_ms": _time_ms(torch, lambda: tattn.flash_forward_plain(
+               q, k, v, causal), flush, reps),
+           "library_ms": _time_ms(torch, lambda: _sdpa(
+               torch, q, k, v, causal), flush, reps)}
+    (row["bound_ms"], row["bound_by"], row["bytes"],
+     row["flops"]) = _attn_bound(q, k, causal)
+    log(f"flash {name:11s} {kv:7s} causal={causal!s:5s} {row['shape']}: "
+        f"err {err!r} (beyond one ulp, of the max: {rel!r}) ms {row['ms']!r} plain_ms "
+        f"{row['plain_ms']!r} library_ms {row['library_ms']!r} (rel err "
+        f"{lib_err!r}) bound_ms {row['bound_ms']!r} ({row['bound_by']}, "
+        f"{row['flops']} flops, {row['bytes']} B)")
+    return row
+
+
+def _peak_bytes(torch, fn):
+    """fn()'s result and the device memory it took above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def phase_attention(torch):
+    import importlib
+
+    tattn = importlib.import_module("mxnet_tpu_torch.parallel.attention")
+    res = {}
+    b, t, h, d = ATTN_SHAPE
+    tattn.reset_launch_counts()
+    # (a) the main path: forward and backward through attention(impl=
+    # "flash") at the transformer's shape, against autograd through the
+    # reference; then a long-context forward
+    q, k, v = _attn_inputs(torch, b, t, t, h, d, torch.float32, 11)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    head = torch.randn(q.shape, generator=g, device="cuda")
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = tattn.attention(*leaves, causal=True, impl="flash")
+    (out * head).sum().backward()
+    ref_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = tattn.attention_reference(*ref_leaves, causal=True)
+    (ref * head).sum().backward()
+    grad = {"out": _rel(torch, out.detach(), ref.detach())}
+    grad.update({n: _rel(torch, a.grad, r.grad)
+                 for n, a, r in zip("qkv", leaves, ref_leaves)})
+    res["gradient_rel_err"] = grad
+    check(all(e <= ATTN_TOL["float32"] for e in grad.values()),
+          f"flash attention forward/backward vs reference: {grad}")
+    log(f"attention: attention(impl='flash') {list(ATTN_SHAPE)} float32 "
+        f"causal, forward and backward vs the reference: {grad}")
+    del q, k, v, head, leaves, out, ref_leaves, ref
+    torch.cuda.empty_cache()
+
+    lb, lt, lh, ld = LONG_SHAPE
+    q, k, v = _attn_inputs(torch, lb, lt, lt, lh, ld, torch.float32, 13)
+    with torch.no_grad():
+        out, flash_peak = _peak_bytes(torch, lambda: tattn.attention(
+            q, k, v, causal=True, impl="flash"))
+    launches = tattn.launch_counts()
+    res["launches"] = launches
+    check(launches["flash_attention"] == 2,
+          f"flash kernel launches on the path {launches} != 2")
+    ref, plain_peak = _peak_bytes(
+        torch, lambda: tattn.flash_forward_plain(q, k, v, True))
+    rel = _rel(torch, out, ref)
+    check(rel <= ATTN_TOL["float32"],
+          f"long context: flash vs plain {rel!r}")
+    del out, ref
+    torch.cuda.empty_cache()
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    long = {"shape": list(LONG_SHAPE), "rel_err": rel,
+            "flash_peak_bytes": flash_peak, "plain_peak_bytes": plain_peak,
+            "input_bytes": 3 * q.numel() * q.element_size(),
+            "ms": _time_ms(torch, lambda: tattn.flash_forward(
+                q, k, v, True), flush, 5),
+            "plain_ms": _time_ms(torch, lambda: tattn.flash_forward_plain(
+                q, k, v, True), flush, 3),
+            "library_ms": _time_ms(torch, lambda: _sdpa(torch, q, k, v,
+                                                        True), flush, 5)}
+    long["bound_ms"], long["bound_by"], _, _ = _attn_bound(q, k, True)
+    res["long_context"] = long
+    log(f"attention: long context {list(LONG_SHAPE)} float32 causal: "
+        f"flash {long['ms']!r} ms, peak {flash_peak} B above the inputs; "
+        f"plain {long['plain_ms']!r} ms, peak {plain_peak} B; library "
+        f"{long['library_ms']!r} ms; bound {long['bound_ms']!r} ms "
+        f"({long['bound_by']}); rel err {rel!r}; flash launches on the "
+        f"path {launches}")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # (b) the kernel against its plain version at each shape
+    rows = []
+    seed = 20
+    for kv in ("float32", "bf16"):
+        for causal in (True, False):
+            rows.append(_attn_row(torch, tattn, "transformer",
+                                  (b, t, t, h, d), causal, kv, flush, seed))
+            seed += 1
+        rows.append(_attn_row(torch, tattn, "unequal",
+                              (1, 256, 1024, 8, 64), True, kv, flush, seed))
+        seed += 1
+    for causal in (True, False):
+        rows.append(_attn_row(torch, tattn, "test", (2, 64, 64, 4, 16),
+                              causal, "float32", flush, seed))
+        seed += 1
+    res["rows"] = rows
+    del flush
+    torch.cuda.empty_cache()
+    log("phase 8 ok: flash attention agrees with its plain version and "
+        "the reference")
+    return res
+
+
+# ------------------------------------------------------------ phase 9
+def _tower_flops(batch, seq, d_model, d_ff, num_layers):
+    """Forward FLOPs at 2 a MAC, as tools/bench_transformer.py counts
+    them (causal attention halved)."""
+    proj = 4 * batch * seq * d_model * d_model
+    attn = 2 * batch * seq * seq * d_model // 2
+    ffn = 2 * batch * seq * d_model * d_ff
+    return 2 * num_layers * (proj + attn + ffn)
+
+
+def _tower_reference(torch, mx, net, shape, arg_params, x, y):
+    """Outputs and gradients of the first step through a bind of the
+    graph as written (MXNET_GRAPH_PASSES=0: each node one op), from the
+    same weights and batch."""
+    os.environ["MXNET_GRAPH_PASSES"] = "0"
+    try:
+        names = net.list_arguments()
+        req = {n: ("null" if n in ("data", "label") else "write")
+               for n in names}
+        exe = net.simple_bind(mx.gpu(0), grad_req=req, data=shape,
+                              label=shape)
+        for n, arr in arg_params.items():
+            exe.arg_dict[n][:] = arr
+        exe.arg_dict["data"][:] = x
+        exe.arg_dict["label"][:] = y
+        exe.forward(is_train=True)
+        exe.backward()
+        outs = [o.data.clone() for o in exe.outputs]
+        grads = {n: exe.grad_dict[n].data.clone() for n in names
+                 if req[n] == "write"}
+    finally:
+        del os.environ["MXNET_GRAPH_PASSES"]
+    del exe
+    torch.cuda.empty_cache()
+    return outs, grads
+
+
+def phase_transformer(torch, mx, profile=False):
+    import importlib
+
+    from mxnet_tpu_torch.models import get_transformer
+
+    tattn = importlib.import_module("mxnet_tpu_torch.parallel.attention")
+    res = {}
+    net = get_transformer(**TOWER_CFG)
+    shape = (TOWER_BATCH, TOWER_SEQ, TOWER_CFG["d_model"])
+    rs = np.random.RandomState(0)
+    x = mx.nd.array(rs.randn(*shape).astype(np.float32), ctx=mx.gpu(0))
+    y = mx.nd.array(rs.randn(*shape).astype(np.float32), ctx=mx.gpu(0))
+    batch = mx.io.DataBatch(data=[x], label=[y])
+
+    tattn.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mod = mx.mod.Module(net, data_names=("data",), label_names=("label",),
+                        context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", shape)], label_shapes=[("label", shape)])
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(kvstore="local", optimizer="adam",
+                       optimizer_params={"learning_rate": 1e-4})
+    res["bind_init_s"] = time.perf_counter() - t0
+    exe = mod._exec_group.execs[0]
+    args, _ = mod.get_params()
+    w0 = {n: a.data.clone() for n, a in args.items()}
+    res["params"] = int(sum(a.size for a in args.values()))
+    metric = mx.metric.create("mse")
+    step_ms, first = [], None
+    torch.cuda.synchronize()
+    for step in range(TOWER_STEPS):
+        t = time.perf_counter()
+        mod.forward_backward(batch)
+        if step == 0:
+            torch.cuda.synchronize()
+            first = ([o.data.clone() for o in exe.outputs],
+                     {n: exe.grad_dict[n].data.clone() for n in w0})
+        mod.update()
+        mod.update_metric(metric, batch.label)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    launches = tattn.launch_counts()
+    res["flash_launches"] = launches
+    check(launches["flash_attention"] == 0,
+          f"the transformer launched the flash kernel: {launches}")
+    mse = metric.get()[1]
+    res["mse"] = mse
+    check(np.isfinite(mse), f"non-finite MSE {mse!r}")
+    args, _ = mod.get_params()
+    moved = {n: (args[n].data - w0[n]).abs().max().item() for n in w0}
+    res["weight_moved_min"] = min(moved.values())
+    check(all(m > 0 for m in moved.values()),
+          f"weights that did not move: {[n for n, m in moved.items() if not m > 0]}")
+
+    if profile:
+        res["profile"] = _profile_step(torch, mod, batch)
+    # the first step against the graph bound without passes
+    del mod, exe
+    torch.cuda.empty_cache()
+    ref_outs, ref_grads = _tower_reference(
+        torch, mx, net, shape,
+        {n: mx.nd.NDArray(w, ctx=mx.gpu(0)) for n, w in w0.items()}, x, y)
+
+    def rel_err(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    worst = {"outputs": max(rel_err(a, b) for a, b in
+                            zip(first[0], ref_outs))}
+    worst.update({n: rel_err(first[1][n], g) for n, g in ref_grads.items()})
+    name = max(worst, key=worst.get)
+    res["module_vs_op_by_op_worst"] = {"tensor": name, "rel": worst[name]}
+    check(worst[name] <= TOWER_PARITY_RTOL,
+          f"first step Module vs op by op: {name} differs by "
+          f"{worst[name]!r} of its max > {TOWER_PARITY_RTOL}")
+
+    steady = step_ms[1:]
+    fwd = _tower_flops(TOWER_BATCH, TOWER_SEQ, TOWER_CFG["d_model"],
+                       TOWER_CFG["d_ff"], TOWER_CFG["num_layers"])
+    p50 = float(np.percentile(steady, 50))
+    res.update({
+        "step_ms": step_ms, "step_ms_p50": p50,
+        "step_ms_p95": float(np.percentile(steady, 95)),
+        "tokens_per_s": TOWER_BATCH * TOWER_SEQ * len(steady)
+        / (sum(steady) / 1e3),
+        "fwd_flops": fwd, "step_flops": 3 * fwd,
+        "tflops_per_s": 3 * fwd / (p50 / 1e3) / 1e12})
+    log(f"transformer: {res['params']} parameters, batch {TOWER_BATCH} x "
+        f"{TOWER_SEQ} tokens, {TOWER_STEPS} steps (Adam lr 1e-4), first "
+        f"step {step_ms[0]!r} ms, steady p50 {p50!r} ms p95 "
+        f"{res['step_ms_p95']!r} ms, {res['tokens_per_s']!r} tokens/s, "
+        f"{res['tflops_per_s']!r} TFLOP/s of {3 * fwd} FLOP a step, peak "
+        f"memory {res['peak_mem_bytes']} B, MSE {mse!r}, Module vs op by "
+        f"op worst {name} {worst[name]!r}; flash kernel launches "
+        f"{launches['flash_attention']} (RingAttention on one device is "
+        f"plain attention, no B6)")
+    log("phase 9 ok: the transformer trains through Module")
+    return res
+
+
 # -------------------------------------------------------------- main
 def _kernel_line(rows, launches_float, launches_int8):
     def pick(kv):
@@ -947,13 +1315,28 @@ def _codegen_line(template_rows, train_rows, train_launches,
     return out
 
 
+def _flash_line(attn):
+    """B6 at the transformer's shape, float32, causal; its launches on
+    phase 8's path; the largest error of every comparison."""
+    r = next(x for x in attn["rows"] if x["name"] == "transformer"
+             and x["kv"] == "float32" and x["causal"])
+    return [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "mxnet_tpu/parallel/attention.py:48",
+        "launches": attn["launches"]["flash_attention"],
+        "max_abs_err": max(x["max_abs_err"] for x in attn["rows"]),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]}]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
     ap.add_argument("--profile", action="store_true",
                     help="also run torch.profiler over a serving window "
-                    "(phase 3) and a training step (phase 6) and print "
-                    "where the device time goes")
+                    "(phase 3) and a training step (phases 6 and 9) and "
+                    "print where the device time goes")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -1000,12 +1383,15 @@ def main():
     report["training"] = training
     train_rows = run("train_kernels", phase_train_kernels, torch, groups,
                      training["launches_per_step_by_digest"])
+    attn = run("attention", phase_attention, torch)
+    run("transformer", phase_transformer, torch, mx, profile=args.profile)
 
     line = {"kernels": _kernel_line(
         rows, serving["launches"]["paged_attention_float"],
         kv["int8"]["launches"]["paged_attention_int8"])
         + _codegen_line(codegen["rows"], train_rows, training["launches"],
-                        codegen["launches"])}
+                        codegen["launches"])
+        + _flash_line(attn)}
     report["kernels"] = line["kernels"]
     report["phase_s"]["total"] = time.perf_counter() - t_start
     if args.out:
@@ -1019,7 +1405,6 @@ def main():
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

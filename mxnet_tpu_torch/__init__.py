@@ -10,6 +10,11 @@ mxnet_tpu. Its slices so far:
                      (`symbol`, `passes`, `executor`, `module`), whose
                      fusion groups run as generated CUDA kernels
                      (`passes/codegen.py`, `csrc/fusion_codegen.cuh`)
+  long context       `parallel.attention(..., impl="flash")`, whose
+                     forward is a hand-written CUDA kernel
+                     (`csrc/flash_attention.cu`); the transformer tower
+                     (`models.get_transformer`) trained through Module
+                     with Adam
 
 Kernels are built with nvcc at first use. Entry points run on the CUDA
 device unless the caller names another one (`mx.cpu()`, device="cpu").
@@ -38,11 +43,13 @@ from . import callback  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import models  # noqa: F401
+from . import parallel  # noqa: F401
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 
 __all__ = ["Context", "MXNetError", "base", "callback", "context", "cpu",
            "current_context", "decoding", "executor", "gpu", "init",
            "initializer", "io", "lr_scheduler", "metric", "mod", "models",
-           "module", "nd", "ndarray", "ops", "optimizer", "passes", "random",
-           "serving", "sym", "symbol", "telemetry", "utils"]
+           "module", "nd", "ndarray", "ops", "optimizer", "parallel",
+           "passes", "random", "serving", "sym", "symbol", "telemetry",
+           "utils"]

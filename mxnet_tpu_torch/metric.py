@@ -1,5 +1,6 @@
-"""Evaluation metrics (mxnet_tpu/metric.py): Accuracy, CrossEntropy,
-CompositeEvalMetric, CustomMetric and `create`.
+"""Evaluation metrics (mxnet_tpu/metric.py): Accuracy, CrossEntropy, the
+regression metrics MAE, MSE and RMSE, CompositeEvalMetric, CustomMetric
+and `create`.
 
 Every built-in metric is one vectorized statistic over a whole batch.
 The training loop's entry point `update_auto` accumulates it on the
@@ -79,8 +80,12 @@ class EvalMetric:
                 p = _tensor(pred)
                 self._pending.append(
                     self._stat_device(_tensor(label, p.device), p))
-                shape = label.shape
-                self.num_inst += int(_np.prod(shape)) if shape else 1
+                self.num_inst += self._count_device(label, pred)
+
+    def _count_device(self, label, pred):
+        """This batch's instance count, from shapes alone: one instance
+        per label element."""
+        return int(_np.prod(label.shape)) if label.shape else 1
 
     def _drain_pending(self):
         if not self._pending:
@@ -161,6 +166,79 @@ class CrossEntropy(EvalMetric):
         return -torch.log(picked + self.eps).sum()
 
 
+class _Regression(EvalMetric):
+    """Elementwise-error metrics: one value accumulated per batch."""
+
+    def _error(self, diff):
+        raise NotImplementedError
+
+    def _error_device(self, diff):
+        raise NotImplementedError
+
+    @staticmethod
+    def _align(label, pred):
+        """Same-size arrays compare elementwise ((N,) against (N, 1) never
+        broadcasts to (N, N)); a per-sample (N,) label against (N, M)
+        predictions broadcasts across the columns."""
+        if label.shape != pred.shape:
+            squeezed = tuple(s for s in label.shape if s != 1)
+            p_squeezed = tuple(s for s in pred.shape if s != 1)
+            if squeezed == p_squeezed:
+                label = label.reshape(pred.shape)
+            elif (label.ndim == 1 and pred.ndim > 1
+                  and label.shape[0] == pred.shape[0]):
+                label = label.reshape(-1, *([1] * (pred.ndim - 1)))
+            else:
+                raise ValueError(
+                    f"regression metric: label shape {tuple(label.shape)} "
+                    f"incompatible with pred shape {tuple(pred.shape)}")
+        return label
+
+    def _stat(self, label, pred):
+        label = self._align(label, pred)
+        return self._error(label - pred), 1
+
+    def _stat_device(self, label, pred):
+        label = self._align(label, pred)
+        return self._error_device(label - pred)
+
+    def _count_device(self, label, pred):
+        return 1
+
+
+class MAE(_Regression):
+    def __init__(self):
+        super().__init__("mae")
+
+    def _error(self, diff):
+        return _np.abs(diff).mean()
+
+    def _error_device(self, diff):
+        return diff.abs().mean()
+
+
+class MSE(_Regression):
+    def __init__(self):
+        super().__init__("mse")
+
+    def _error(self, diff):
+        return _np.square(diff).mean()
+
+    def _error_device(self, diff):
+        return diff.square().mean()
+
+
+class RMSE(_Regression):
+    def __init__(self):
+        super().__init__("rmse")
+
+    def _error(self, diff):
+        return _np.sqrt(_np.square(diff).mean())
+
+    def _error_device(self, diff):
+        return diff.square().mean().sqrt()
+
+
 class CompositeEvalMetric(EvalMetric):
     """Fan updates out to child metrics; reports them all."""
 
@@ -222,6 +300,9 @@ _REGISTRY = {
     "acc": Accuracy,
     "accuracy": Accuracy,
     "ce": CrossEntropy,
+    "mae": MAE,
+    "mse": MSE,
+    "rmse": RMSE,
 }
 
 

@@ -1,5 +1,6 @@
-"""Shape ops (flatten, Concat, reshape), clip, and the constant sources
-the folding pass produces (_zeros, _ones, _graph_constant)."""
+"""Shape ops (flatten, Concat, SliceChannel, reshape), clip, and the
+constant sources the folding pass produces (_zeros, _ones,
+_graph_constant)."""
 from __future__ import annotations
 
 import ast
@@ -89,6 +90,24 @@ def clip(data, a_min=None, a_max=None):
           defaults={"dim": 1}, aliases=("concat",))
 def concat(*args, dim=1, num_args=None):
     return torch.cat(args, dim=dim)
+
+
+@register("SliceChannel", arg_names=["data"],
+          coerce={"num_outputs": coerce_int, "axis": coerce_int,
+                  "squeeze_axis": coerce_bool},
+          defaults={"axis": 1, "squeeze_axis": False},
+          aliases=("slice_channel", "split"),
+          num_outputs_fn=lambda p: int(p.get("num_outputs", 1)))
+def slice_channel(data, num_outputs=1, axis=1, squeeze_axis=False):
+    """`num_outputs` equal parts along `axis` (views of `data`)."""
+    size = data.shape[axis]
+    if size % num_outputs:
+        raise MXNetError(f"SliceChannel: axis {axis} of size {size} does "
+                         f"not split into {num_outputs} equal parts")
+    parts = torch.split(data, size // num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts)
 
 
 # ------------------------------------------------------ constant sources

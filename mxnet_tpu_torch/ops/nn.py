@@ -1,6 +1,7 @@
-"""Neural-network layer ops on this slice's path: Activation, LeakyReLU,
-FullyConnected, Convolution, Pooling, BatchNorm, Dropout, SoftmaxOutput
-and MakeLoss, as in mxnet_tpu/ops/nn.py.
+"""Neural-network layer ops on the port's paths: Activation, LeakyReLU,
+FullyConnected, Convolution, Pooling, BatchNorm, Dropout, SoftmaxOutput,
+the regression heads (LinearRegressionOutput, MAERegressionOutput,
+LogisticRegressionOutput) and MakeLoss, as in mxnet_tpu/ops/nn.py.
 
 - Convolution and Pooling take MXNet's NCHW (channel-first) layout only;
   the channels-last rewrite of the pass pipeline is not ported.
@@ -9,8 +10,9 @@ and MakeLoss, as in mxnet_tpu/ops/nn.py.
   (from the biased batch variance) as trailing outputs, and the
   executor writes them back outside the autograd graph. With
   `fix_gamma` gamma is replaced by ones, so its gradient is zero.
-- SoftmaxOutput and MakeLoss are loss heads whose gradient ignores the
-  head gradient (MXNet's output-op contract): torch.autograd.Functions.
+- SoftmaxOutput, the regression heads and MakeLoss are loss heads whose
+  gradient ignores the head gradient (MXNet's output-op contract):
+  torch.autograd.Functions.
 - Dropout draws its mask from the device's torch.Generator
   (mxnet_tpu_torch.random); the JAX package's bits are not reproduced.
 """
@@ -343,6 +345,44 @@ def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
         data, label, (grad_scale, ignore_label, multi_output, use_ignore,
                       preserve_shape, normalization, smooth_alpha,
                       out_grad))
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """fwd(data) forward; backward grad_scale / prod(label.shape[1:]) *
+    bwd(out, label), whatever the head gradient; the label gets none."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, bwd, grad_scale):
+        out = fwd(data)
+        ctx.save_for_backward(out, label)
+        ctx.bwd, ctx.grad_scale = bwd, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        num_output = math.prod(label.shape[1:])
+        grad = ctx.grad_scale / num_output * ctx.bwd(
+            out, label.reshape(out.shape))
+        return grad, None, None, None, None
+
+
+def _regression_output(name, fwd, bwd):
+    @register(name, arg_names=["data", "label"],
+              coerce={"grad_scale": coerce_float},
+              defaults={"grad_scale": 1.0}, no_grad_inputs=("label",))
+    def _op(data, label, grad_scale=1.0):
+        return _RegressionOutput.apply(data, label, fwd, bwd, grad_scale)
+
+    return _op
+
+
+_regression_output("LinearRegressionOutput", lambda x: x,
+                   lambda o, lab: o - lab)
+_regression_output("MAERegressionOutput", lambda x: x,
+                   lambda o, lab: torch.sign(o - lab))
+_regression_output("LogisticRegressionOutput", torch.sigmoid,
+                   lambda o, lab: o - lab)
 
 
 class _MakeLoss(torch.autograd.Function):

@@ -62,6 +62,10 @@ class OpDef:
 
 
 _REGISTRY: dict[str, OpDef] = {}
+# ops of the JAX package the port has not ported yet: name -> message
+_MOE_MESSAGE = ("the mixture-of-experts op MoEFFN is not ported yet: it "
+                "waits for the multi-device slice (ROADMAP.md, A.5)")
+NOT_PORTED = {"MoEFFN": _MOE_MESSAGE, "moe_ffn": _MOE_MESSAGE}
 
 
 def register(name, num_outputs=1, arg_names=None, aux_names=(), coerce=None,
@@ -93,6 +97,8 @@ def get(name: str) -> OpDef:
     try:
         return _REGISTRY[name]
     except KeyError:
+        if name in NOT_PORTED:
+            raise MXNetError(NOT_PORTED[name]) from None
         raise MXNetError(f"unknown op {name!r}") from None
 
 

@@ -1,9 +1,11 @@
 """Forward shape/type inference for symbolic binding.
 
-Only ops that create parameter shapes (FullyConnected infers its weight
-from the data shape, and so on) have hand-written rules; every other
-output shape and dtype comes from running the op's own function on
-"meta" tensors, which carry shape and dtype but no data.
+Only ops that create parameter or label shapes (FullyConnected infers
+its weight from the data shape, with flatten=False from the last axis of
+3-D data; a loss head infers its label) have hand-written rules; every
+other output shape and dtype (SliceChannel's parts, RingAttention's
+output) comes from running the op's own function on "meta" tensors,
+which carry shape and dtype but no data.
 
 An infer rule has signature
     fn(params, in_shapes) -> (in_shapes, out_shapes)
@@ -143,14 +145,26 @@ def _bn(params, ins):
     return out, None
 
 
-@rule("SoftmaxOutput")
-def _softmax_label(params, ins):
-    data, label = (ins + [None] * 2)[:2]
-    if data is not None and label is None:
-        if params.get("multi_output"):
-            label = (data[0],) + tuple(data[2:])
-        elif params.get("preserve_shape"):
-            label = tuple(data[:-1])
-        else:
-            label = (data[0],)
-    return [data, label], None
+def _label_rule(label_like_data=False):
+    def fn(params, ins):
+        data, label = (ins + [None] * 2)[:2]
+        if data is not None and label is None:
+            if label_like_data:
+                # regression: label shaped like data, except (N,1)->(N,)
+                label = ((data[0],) if len(data) == 2 and data[1] == 1
+                         else data)
+            elif params.get("multi_output"):
+                label = (data[0],) + tuple(data[2:])
+            elif params.get("preserve_shape"):
+                label = tuple(data[:-1])
+            else:
+                label = (data[0],)
+        return [data, label], None
+
+    return fn
+
+
+_RULES["SoftmaxOutput"] = _label_rule(False)
+for _n in ("LinearRegressionOutput", "MAERegressionOutput",
+           "LogisticRegressionOutput"):
+    _RULES[_n] = _label_rule(True)

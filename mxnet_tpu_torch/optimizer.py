@@ -1,17 +1,21 @@
 """Optimizers (mxnet_tpu/optimizer.py): the Optimizer base with per-index
 update counts, lr/wd multipliers from parameter names and symbol
 attributes, gradient rescale and clip, an lr_scheduler; SGD with
-momentum; the `Updater` closure Module drives per parameter.
+momentum; Adam; the `Updater` closure Module drives per parameter.
 
 The update runs in place on the parameter's and the state's device
-tensors, with the JAX package's arithmetic (sgd_mom_update):
+tensors, with the JAX package's arithmetic. SGD (sgd_mom_update):
     g   = clip(grad * rescale_grad)
     mom = momentum * mom - lr * (g + wd * weight)
     weight += mom
-The other optimizers (Adam, NAG, RMSProp, ...) wait for a later slice.
+Adam runs the registered `adam_update` op with the bias-corrected lr
+lr * sqrt(1 - beta2^t) / (1 - beta1^t) taken on the host, t the
+parameter's update count. The other optimizers (NAG, RMSProp, ...) wait
+for a later slice.
 """
 from __future__ import annotations
 
+import math
 import pickle
 
 import numpy as np
@@ -19,6 +23,7 @@ import torch
 
 from . import ndarray as nd
 from .base import MXNetError
+from .ops.optimizer_ops import adam_update
 
 _OPT_REGISTRY: dict[str, type] = {}
 
@@ -187,6 +192,39 @@ class SGD(Optimizer):
                 torch._foreach_mul_(moms, self.momentum)
                 torch._foreach_sub_(moms, step)
                 torch._foreach_add_(ws, moms)
+
+
+@register
+class Adam(Optimizer):
+    """Adam through the adam_update op, the bias-corrected lr applied on
+    the host (mxnet_tpu/optimizer.py Adam)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype),
+                nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        t = self._index_update_count[index]
+        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        mean, var = state
+        with torch.no_grad():
+            outs = adam_update(
+                weight._data, grad._data, mean._data, var._data, lr=lr,
+                beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+                wd=wd, rescale_grad=self.rescale_grad,
+                clip_gradient=self.clip_gradient or -1.0)
+            for tgt, new in zip((weight, mean, var), outs):
+                tgt._data.copy_(new)
 
 
 class Updater:

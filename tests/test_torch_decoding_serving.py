@@ -217,7 +217,10 @@ def test_import_rule():
         "from mxnet_tpu_torch import decoding\n"
         "import mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor\n"
         "import mxnet_tpu_torch.module, mxnet_tpu_torch.passes\n"
-        "import mxnet_tpu_torch.models\n"
+        "import mxnet_tpu_torch.models, mxnet_tpu_torch.parallel\n"
+        "import mxnet_tpu_torch.models.transformer\n"
+        "import mxnet_tpu_torch.ops.parallel_ops\n"
+        "import mxnet_tpu_torch.ops.optimizer_ops\n"
         "bad = [m for m in sys.modules if m == 'jax' or m == 'mxnet_tpu'"
         " or m.startswith(('jax.', 'jaxlib', 'mxnet_tpu.'))]\n"
         "print(bad)\n"
