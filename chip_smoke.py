@@ -72,6 +72,25 @@ each of which exits non-zero on failure:
                   without the pass pipeline (MXNET_GRAPH_PASSES=0), and no
                   flash-kernel launch (the tower's RingAttention op is
                   plain attention on one device, as in the JAX package)
+ 10. rtc          user device code: Inception-ResNet-v2 at full width with
+                  its SoftmaxOutput replaced by the rtc_softmax_ce Custom
+                  op (rtc_ops: csrc/rtc/softmax_ce.cu compiled by NVRTC,
+                  two launches a step), trained through mx.FeedForward
+                  (gpu(0), 1 epoch of 4 batches of 32 seeded 3x299x299
+                  images, SGD lr 0.1 momentum 0.9 wd 1e-4, Xavier(), TF32
+                  off). Checks: 2 launches a step and 1 a predict batch;
+                  the first step against SoftmaxOutput's from the same
+                  weights and batch (output 1e-5 of its max, gradients
+                  1e-3 of max(the tensor's max, 1e-6 of the net's largest
+                  gradient)); save -> load(gpu(0)) -> predict bit-identical;
+                  score runs; each source compiled once. Then both head
+                  kernels against their plain versions at (32, 1000) and
+                  (8192, 32000), the three elementwise bodies
+                  (csrc/rtc/elementwise.cu) at 2^26 float32 elements bit
+                  for bit, the cold NVRTC compile and the host cost of a
+                  push; and examples/numpy_ops/custom_softmax.py's numpy
+                  CustomOp net through Module.fit on gpu(0) (accuracy >
+                  0.9)
 
 The last two lines of standard output are
 one JSON object with every kernel's numbers and one JSON object naming
@@ -126,6 +145,28 @@ TOWER_BATCH, TOWER_SEQ, TOWER_STEPS = 8, 2048, 10
 # same inputs (the pass pipeline only renames and reorders nodes), so each
 # tensor agrees to this share of its largest magnitude
 TOWER_PARITY_RTOL = 1e-4
+
+# phase 10: 4 batches of the training shape through FeedForward; the head
+# against SoftmaxOutput on the first step: its output within this share
+# of the max (the kernel's softmax sums in another order than
+# torch.softmax), the gradients within TRAIN_PARITY_RTOL
+RTC_BATCHES = 4
+RTC_IMAGE = 299
+RTC_HEAD_TOL = 1e-5
+# the leaves whose gradient is zero analytically: the last block has no
+# ReLU, so b8_final_proj_bn's beta adds a per-channel constant that the
+# 1x1 head_conv carries linearly into head_conv_bn, whose training-mode
+# batch mean removes it. Both heads' readings of it are rounding noise,
+# so instead of the relative check each side must be within
+# RTC_ZERO_GRAD_TOL of the net's largest gradient; every other leaf is
+# held to TRAIN_PARITY_RTOL of its own max
+RTC_ZERO_GRAD_LEAVES = ("b8_final_proj_bn_beta",)
+RTC_ZERO_GRAD_TOL = 1e-6
+# softmax kernel against its plain version (absolute; values are <= 1)
+RTC_SOFTMAX_TOL = 1e-6
+RTC_VOCAB_SHAPE = (8192, 32000)        # a vocabulary-sized softmax, 1 GB
+RTC_ELEMS = 1 << 26                    # 256 MB of float32
+RTC_HOST_REPS = 1000
 
 SERVE_CFG = dict(vocab=32000, d_model=1024, n_layers=16, n_heads=16,
                  d_ff=4096, max_len=2048)
@@ -631,9 +672,17 @@ def _seeded(torch, avals, seed, dev, dtype=None):
             for s, d in avals]
 
 
-def _kernel_row(torch, passes, name, group, flush, seed):
-    """One group's kernel against its plain version in float32 and bf16
-    at its bind shapes, with its times and bound."""
+def _bf16_twins(torch, passes, groups):
+    """The bf16 build of each group, all compiled together (one nvcc a
+    source, started at once)."""
+    return passes.build_groups(
+        [(g.spec, [(s, torch.bfloat16) for s, _ in g.in_avals])
+         for g in groups], torch.device("cuda"))
+
+
+def _kernel_row(torch, passes, name, group, bf, flush, seed):
+    """One group's kernel against its plain version in float32 and, as
+    `bf`, bf16 at its bind shapes, with its times and bound."""
     dev = torch.device("cuda")
     row = {"name": name, "digest": group.digest,
            "template": group.template,
@@ -645,9 +694,6 @@ def _kernel_row(torch, passes, name, group, flush, seed):
     err, ok = passes.parity_error(group, ins, got)
     check(ok, f"{name} float32: max abs err {err!r} beyond the parity "
           "tolerance (passes.codegen.parity_error)")
-    bf = passes.build_groups(
-        [(group.spec, [(s, torch.bfloat16) for s, _ in group.in_avals])],
-        dev)[0]
     ins_bf = [x.to(torch.bfloat16) for x in ins]
     got_bf = bf.kernel(*ins_bf, out_shape=bf.out_shape, count=False)
     err_bf, ok = passes.parity_error(bf, ins_bf, got_bf)
@@ -730,8 +776,9 @@ def phase_codegen(torch, mx, side=4096):
         f" bind {res['bind_s']!r} s, launches {launches}")
     del execs
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
-    res["rows"] = [_kernel_row(torch, passes, name, g, flush, 7)
-                   for name, g in groups.items()]
+    twins = _bf16_twins(torch, passes, groups.values())
+    res["rows"] = [_kernel_row(torch, passes, name, g, bf, flush, 7)
+                   for (name, g), bf in zip(groups.items(), twins)]
     del flush
     torch.cuda.empty_cache()
     log("phase 5 ok: codegen templates agree with the plain chain")
@@ -920,11 +967,13 @@ def phase_train_kernels(torch, groups, launches_per_digest):
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
     names = {320: "block35", 1088: "block17"}
     rows = []
-    for seed, (digest, group) in enumerate(sorted(groups.items())):
+    ordered = sorted(groups.items())
+    twins = _bf16_twins(torch, passes, [g for _, g in ordered])
+    for seed, ((digest, group), bf) in enumerate(zip(ordered, twins)):
         ch = group.in_avals[0][0][1]
         name = ("b8_final" if group.template == "elementwise"
                 else names.get(ch, "block8"))
-        row = _kernel_row(torch, passes, name, group, flush, 200 + seed)
+        row = _kernel_row(torch, passes, name, group, bf, flush, 200 + seed)
         row["launches_per_step"] = launches_per_digest[digest]
         rows.append(row)
     del flush
@@ -1258,6 +1307,448 @@ def phase_transformer(torch, mx, profile=False):
     return res
 
 
+# ------------------------------------------------------------ phase 10
+def _rtc_nets(mx):
+    """Inception-ResNet-v2 with its SoftmaxOutput head (phase 6's net)
+    and the same net with the head replaced by the rtc_softmax_ce Custom
+    op on the last FullyConnected's output."""
+    from mxnet_tpu_torch import rtc_ops  # noqa: F401  (registers the op)
+    from mxnet_tpu_torch.models import get_inception_resnet_v2
+
+    ref = get_inception_resnet_v2(num_classes=1000)
+    fc = ref.get_internals()["fc1_output"]
+    net = mx.sym.Custom(data=fc, label=mx.sym.Variable("softmax_label"),
+                        op_type="rtc_softmax_ce", name="softmax")
+    return ref, net
+
+
+def _host_params(mx, net, batch):
+    """Xavier() parameters of `net` on the host, from mx.random.seed(0),
+    drawn as Module.init_params draws them."""
+    from mxnet_tpu_torch.initializer import InitDesc
+
+    arg_shapes, _, aux_shapes = net.infer_shape(
+        data=(batch, 3, RTC_IMAGE, RTC_IMAGE), softmax_label=(batch,))
+    attrs = net.attr_dict()
+    init = mx.init.Xavier()
+    mx.random.seed(0)
+    args = {n: mx.nd.zeros(s, ctx=mx.cpu())
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    auxs = {n: mx.nd.zeros(s, ctx=mx.cpu())
+            for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    for table in (args, auxs):
+        for n, a in table.items():
+            init(InitDesc(n, attrs.get(n)), a)
+    return args, auxs
+
+
+def _softmax_bound(rows, cols, backward):
+    """Least time: x (or prob and label) read once, the output written
+    once, over the HBM rate; or 7 float32 operations an element forward
+    (max, subtract and exp twice, add, divide), 1 backward, over the
+    float32 rate."""
+    n = rows * cols
+    nbytes = 8 * n + (4 * rows if backward else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (1 if backward else 7) * n / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def _softmax_rows(torch, rtc_ops, flush):
+    """Both head kernels against their plain versions at the training
+    shape and at a vocabulary-sized softmax, with their times."""
+    dev = torch.device("cuda")
+    rows = []
+    for shape in ((TRAIN_BATCH, 1000), RTC_VOCAB_SHAPE):
+        r, c = shape
+        g = torch.Generator(device=dev).manual_seed(r)
+        x = torch.randn(shape, generator=g, device=dev) * 5.0
+        label = torch.randint(0, c, (r,), generator=g, device=dev).float()
+        prob = rtc_ops.softmax_ce_forward(x)
+        grad = rtc_ops.softmax_ce_backward(prob, label)
+        torch.cuda.synchronize()
+        ref_prob = rtc_ops.softmax_plain(x)
+        err_f = (prob - ref_prob).abs().max().item()
+        check(err_f <= RTC_SOFTMAX_TOL, f"softmax {shape}: max abs err "
+              f"{err_f!r} > {RTC_SOFTMAX_TOL}")
+        ref_grad = rtc_ops.softmax_ce_backward_plain(prob, label)
+        err_b = (grad - ref_grad).abs().max().item()
+        check(err_b == 0.0, f"softmax backward {shape}: max abs err "
+              f"{err_b!r} (bit-exact expected)")
+        del ref_prob, ref_grad
+        idx = label.long()[:, None]
+        minus = torch.full_like(idx, -1.0, dtype=torch.float32)
+        reps = 20 if r * c < 1 << 24 else 5
+        for name, fn, plain, lib, err, bwd in (
+                ("softmax_ce_forward",
+                 lambda: rtc_ops.softmax_ce_forward(x),
+                 lambda: rtc_ops.softmax_plain(x),
+                 lambda: torch.softmax(x, dim=1), err_f, False),
+                ("softmax_ce_backward",
+                 lambda: rtc_ops.softmax_ce_backward(prob, label),
+                 lambda: rtc_ops.softmax_ce_backward_plain(prob, label),
+                 lambda: torch.scatter_add(prob, 1, idx, minus), err_b,
+                 True)):
+            row = {"name": name, "shape": list(shape), "max_abs_err": err,
+                   "ms": _time_ms(torch, fn, flush, reps),
+                   "plain_ms": _time_ms(torch, plain, flush, reps),
+                   "library_ms": _time_ms(torch, lib, flush, reps)}
+            row["bound_ms"], row["bound_by"], row["bytes"] = \
+                _softmax_bound(r, c, bwd)
+            rows.append(row)
+            log(f"rtc {name:19s} {shape}: err {err!r} ms {row['ms']!r} "
+                f"plain_ms {row['plain_ms']!r} library_ms "
+                f"{row['library_ms']!r} bound_ms {row['bound_ms']!r} "
+                f"({row['bound_by']}, {row['bytes']} B)")
+        del x, label, prob, grad, idx, minus
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _elementwise_rows(torch, rtc, rtc_ops, flush):
+    """The three repo bodies at RTC_ELEMS float32 elements against their
+    plain versions (bit for bit), with the cold NVRTC compile of their
+    source and the host cost of one push against one torch.mul."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(RTC_ELEMS, generator=g, device=dev) * 100.0
+    y = torch.randn(RTC_ELEMS, generator=g, device=dev) * 100.0
+    first = rtc_ops.kernel("double_f32")
+    cubin = first.compile()
+    res = {"compile_ms": first.compile_ms, "cubin_bytes": len(cubin),
+           "rows": []}
+    for body, plain, ins in (("double", rtc_ops.double_plain, [x]),
+                             ("scale_shift", rtc_ops.scale_shift_plain, [x]),
+                             ("saxpy", rtc_ops.saxpy_plain, [x, y])):
+        k = rtc_ops.kernel(f"{body}_f32")
+        (out,) = k.push(ins, [x.shape])
+        torch.cuda.synchronize()
+        want = plain(*ins)
+        check(torch.equal(out.data, want), f"{body}: kernel != plain "
+              f"(max abs err {(out.data - want).abs().max().item()!r})")
+        del out, want
+        nbytes = 4 * RTC_ELEMS * (len(ins) + 1)
+        row = {"name": body, "elements": RTC_ELEMS, "max_abs_err": 0.0,
+               "ms": _time_ms(torch, lambda: k.push(ins, [x.shape]), flush,
+                              10),
+               "torch_ms": _time_ms(torch, lambda: plain(*ins), flush, 10),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "bytes": nbytes}
+        res["rows"].append(row)
+        log(f"rtc {body:11s} 2^26 float32: bit-exact, ms {row['ms']!r} "
+            f"torch expression ms {row['torch_ms']!r} bound_ms "
+            f"{row['bound_ms']!r} (bytes, {nbytes} B)")
+    del x, y
+    torch.cuda.empty_cache()
+    # host cost of an enqueue: a small tensor, no synchronize in the loop
+    small = torch.randn(4096, device=dev)
+    k = rtc_ops.kernel("double_f32")
+    for fn_name, fn in (("push", lambda: k.push([small], [small.shape])),
+                        ("torch_mul", lambda: torch.mul(small, 2.0))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RTC_HOST_REPS):
+            fn()
+        res[f"{fn_name}_host_us"] = \
+            (time.perf_counter() - t0) / RTC_HOST_REPS * 1e6
+        torch.cuda.synchronize()
+    log(f"rtc elementwise source: cold NVRTC compile {res['compile_ms']!r} "
+        f"ms ({res['cubin_bytes']} B cubin); host us a push "
+        f"{res['push_host_us']!r}, a torch.mul {res['torch_mul_host_us']!r}")
+    return res
+
+
+def _register_numpy_softmax(mx):
+    """examples/numpy_ops/custom_softmax.py's CustomOp, on the port: the
+    example's numpy forward and backward (a host round trip each)."""
+
+    class NumpySoftmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            e = np.exp(x - x.max(axis=1, keepdims=True))
+            self.assign(out_data[0], req[0],
+                        mx.nd.array(e / e.sum(axis=1, keepdims=True)))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0].asnumpy()
+            label = in_data[1].asnumpy().astype(int)
+            g = y.copy()
+            g[np.arange(len(label)), label] -= 1.0
+            self.assign(in_grad[0], req[0], mx.nd.array(g))
+
+    @mx.operator.register("numpy_softmax_ce")
+    class NumpySoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return NumpySoftmax()
+
+
+def _custom_softmax_example(torch, mx):
+    """The example's net and data at its own size (5 classes, 16
+    features, 1024 points, batch 64, 10 epochs, lr 0.5) through
+    Module.fit on the card; then DataParallelExecutorManager on [gpu(0)]
+    with the trained weights against the Module's forward."""
+    _register_numpy_softmax(mx)
+    rs = np.random.RandomState(0)
+    k, d, n = 5, 16, 1024
+    centers = rs.randn(k, d).astype(np.float32) * 3.0
+    y = rs.randint(0, k, n).astype(np.float32)
+    x = centers[y.astype(int)] + rs.randn(n, d).astype(np.float32) * 0.7
+    data = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(data, name="fc1", num_hidden=32)
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, name="fc2", num_hidden=k)
+    net = mx.sym.Custom(data=net, label=mx.sym.Variable("softmax_label"),
+                        op_type="numpy_softmax_ce", name="softmax")
+    it = mx.io.NDArrayIter(x, y, batch_size=64, shuffle=True)
+    mod = mx.mod.Module(net, context=[mx.default_context()])
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=10, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.5}, eval_metric="acc")
+    fit_s = time.perf_counter() - t0
+    acc = dict(mod.score(it, mx.metric.Accuracy()))["accuracy"]
+    check(acc > 0.9, f"custom_softmax example: accuracy {acc!r} <= 0.9")
+    args, auxs = mod.get_params()
+    it.reset()
+    batch = next(iter(it))
+    mgr = mx.executor_manager.DataParallelExecutorManager(
+        net, [mx.gpu(0)], it)
+    mgr.set_params(args, auxs)
+    mgr.load_data_batch(batch)
+    mgr.forward(is_train=False)
+    mod.forward(batch, is_train=False)
+    check(torch.equal(mgr.curr_execgrp.get_outputs()[0].data,
+                      mod.get_outputs()[0].data),
+          "executor manager on [gpu(0)] != Module forward")
+    log(f"rtc: custom_softmax.py's numpy CustomOp net through Module.fit on "
+        f"{mx.default_context()}: 160 steps in {fit_s!r} s, accuracy "
+        f"{acc!r}; DataParallelExecutorManager on [gpu(0)] equals the "
+        "Module's forward")
+    return {"accuracy": acc, "fit_s": fit_s}
+
+
+def phase_rtc(torch, mx):
+    """User device code: Inception-ResNet-v2 with the rtc_softmax_ce head
+    trained, checkpointed and reloaded through FeedForward on the card."""
+    import tempfile
+
+    from mxnet_tpu_torch import rtc, rtc_ops
+
+    res = {}
+    ref_net, net = _rtc_nets(mx)
+    rs = np.random.RandomState(10)
+    n_img = RTC_BATCHES * TRAIN_BATCH
+    x = rs.uniform(-1, 1, (n_img, 3, RTC_IMAGE, RTC_IMAGE)).astype(
+        np.float32)
+    y = rs.randint(0, 1000, (n_img,)).astype(np.float32)
+    args0, auxs0 = _host_params(mx, net, TRAIN_BATCH)
+    res["params"] = int(sum(a.size for a in args0.values()))
+
+    binds, step_ends, first = [], [], {}
+    orig_bind = mx.mod.Module.bind
+
+    def timed_bind(self, *a, **kw):
+        t = time.perf_counter()
+        out = orig_bind(self, *a, **kw)
+        binds.append((time.perf_counter() - t, time.perf_counter()))
+        return out
+
+    def on_batch(param):
+        if param.nbatch == 0:
+            exe = param.locals["self"]._exec_group.execs[0]
+            first["batch"] = param.locals["batch"]
+            first["outs"] = [o.data.clone() for o in exe.outputs]
+            first["grads"] = {n: exe.grad_dict[n].data.clone()
+                              for n in args0}
+        torch.cuda.synchronize()
+        step_ends.append(time.perf_counter())
+
+    model = mx.FeedForward(
+        net, ctx=mx.gpu(0), num_epoch=1, numpy_batch_size=TRAIN_BATCH,
+        optimizer="sgd", learning_rate=0.1, momentum=0.9, wd=1e-4,
+        initializer=mx.init.Xavier(), arg_params=args0, aux_params=auxs0)
+    fwd_k = rtc_ops.kernel("softmax_ce_forward")
+    bwd_k = rtc_ops.kernel("softmax_ce_backward")
+    rtc.reset_stats()
+    launches0 = (fwd_k.launches, bwd_k.launches)
+    mx.mod.Module.bind = timed_bind
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mx.random.seed(0)      # the first step's Dropout mask, as below
+        model.fit(x, y, batch_end_callback=on_batch)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        mx.mod.Module.bind = orig_bind
+    fit_launches = rtc.stats()["launches"]
+    n_steps = len(step_ends)
+    check(n_steps == RTC_BATCHES, f"fit ran {n_steps} steps")
+    check(fit_launches == 2 * n_steps,
+          f"rtc launches in fit {fit_launches} != 2 x {n_steps} steps")
+    res["cold_bind_s"] = binds[0][0]
+    starts = [binds[0][1]] + step_ends[:-1]
+    step_ms = [(e - s) * 1e3 for s, e in zip(starts, step_ends)]
+    steady = step_ms[1:]
+    res.update({"fit_s": fit_s, "step_ms": step_ms,
+                "step_ms_p50": float(np.percentile(steady, 50)),
+                "step_ms_p95": float(np.percentile(steady, 95)),
+                "images_per_s": TRAIN_BATCH * len(steady)
+                / (sum(steady) / 1e3)})
+    log(f"rtc: FeedForward.fit of Inception-ResNet-v2 with the "
+        f"rtc_softmax_ce head, {res['params']} parameters, {n_steps} steps "
+        f"of {TRAIN_BATCH}: cold bind {res['cold_bind_s']!r} s, first step "
+        f"{step_ms[0]!r} ms, steady p50 {res['step_ms_p50']!r} ms p95 "
+        f"{res['step_ms_p95']!r} ms, {res['images_per_s']!r} images/s, "
+        f"rtc launches {fit_launches}")
+
+    # (1) the first step against SoftmaxOutput's from the same weights
+    ref = mx.mod.Module(ref_net, context=mx.gpu(0))
+    batch = first["batch"]
+    ref.bind(data_shapes=[("data", batch.data[0].shape)],
+             label_shapes=[("softmax_label", batch.label[0].shape)])
+    ref.set_params(args0, auxs0)
+    mx.random.seed(0)
+    ref.forward(batch, is_train=True)
+    ref.backward()
+    exe = ref._exec_group.execs[0]
+
+    def rel_err(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    head = rel_err(first["outs"][0], exe.outputs[0].data)
+    largest = max(exe.grad_dict[n].data.abs().max().item() for n in args0)
+    zero_tol = RTC_ZERO_GRAD_TOL * largest
+    grads, zero = {}, {}
+    for n in args0:
+        g, want = first["grads"][n], exe.grad_dict[n].data
+        if n in RTC_ZERO_GRAD_LEAVES:
+            zero[n] = {"max_abs": g.abs().max().item(),
+                       "ref_max_abs": want.abs().max().item(),
+                       "own_max_rel": rel_err(g, want)}
+        else:
+            grads[n] = rel_err(g, want)
+    worst = max(grads, key=grads.get)
+    # the smallest nonzero gradient the relative check holds (the
+    # fix_gamma gammas' gradients are exactly zero on both sides)
+    ref_max = {n: exe.grad_dict[n].data.abs().max().item() for n in grads}
+    least = min((n for n in grads if ref_max[n] > 0), key=ref_max.get)
+    res["head_vs_softmax_output"] = {
+        "output": head, "worst_grad": worst, "worst_grad_rel": grads[worst],
+        "checked": len(grads), "set_aside": zero, "largest_grad": largest,
+        "exactly_zero": sum(v == 0 for v in ref_max.values()),
+        "least_checked": least, "least_checked_max_abs": ref_max[least],
+        "least_checked_rel": grads[least]}
+    check(head <= RTC_HEAD_TOL, f"rtc head output vs SoftmaxOutput: "
+          f"{head!r} of the max > {RTC_HEAD_TOL}")
+    check(grads[worst] <= TRAIN_PARITY_RTOL,
+          f"rtc head gradients vs SoftmaxOutput: {worst} differs by "
+          f"{grads[worst]!r} of its max > {TRAIN_PARITY_RTOL}")
+    check(len(zero) == len(RTC_ZERO_GRAD_LEAVES),
+          f"leaves {RTC_ZERO_GRAD_LEAVES} not all in the net: {list(zero)}")
+    for n, z in zero.items():
+        check(max(z["max_abs"], z["ref_max_abs"]) <= zero_tol,
+              f"{n}'s gradient is zero analytically, but the heads give "
+              f"{z['max_abs']!r} and {z['ref_max_abs']!r} > {zero_tol!r}")
+    del ref, exe, first
+    torch.cuda.empty_cache()
+    log(f"rtc: first step vs SoftmaxOutput from the same weights: output "
+        f"{head!r} of its max, worst of {len(grads)} gradients {worst} "
+        f"{grads[worst]!r} of its max (the smallest nonzero one, {least} "
+        f"at {ref_max[least]!r}, within {grads[least]!r}); set aside as "
+        f"zero analytically: {zero} (largest gradient {largest!r})")
+
+    # (4) predict, save, load on the card, predict again, score
+    before = rtc.stats()["launches"]
+    pred = model.predict(x)
+    check(rtc.stats()["launches"] - before == RTC_BATCHES,
+          f"predict launches {rtc.stats()['launches'] - before} != "
+          f"{RTC_BATCHES} batches")
+    check(pred.shape == (n_img, 1000) and np.isfinite(pred).all(),
+          f"predict: shape {pred.shape} or non-finite values")
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "irv2_rtc")
+        model.save(prefix)
+        loaded = mx.FeedForward.load(prefix, 1, ctx=mx.gpu(0),
+                                     numpy_batch_size=TRAIN_BATCH)
+        res["checkpoint_bytes"] = os.path.getsize(f"{prefix}-0001.params")
+    pred2 = loaded.predict(x)
+    check(np.array_equal(pred, pred2),
+          "predict after save/load differs from the trained model's "
+          f"(max abs diff {np.abs(pred - pred2).max()!r})")
+    acc = loaded.score(mx.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH))
+    res["score_accuracy"] = acc
+    path_launches = {"softmax_ce_forward": fwd_k.launches - launches0[0],
+                     "softmax_ce_backward": bwd_k.launches - launches0[1]}
+    res["launches"] = path_launches
+    stats = rtc.stats()
+    check(stats["launches"] == 2 * n_steps + 3 * RTC_BATCHES,
+          f"rtc launches on the path {stats['launches']}")
+    log(f"rtc: predict after save/load ({res['checkpoint_bytes']} B of "
+        f".params) is bit-identical; score accuracy {acc!r}; launches on "
+        f"the path {path_launches}")
+    del model, loaded, x, y, pred, pred2, args0, auxs0
+    torch.cuda.empty_cache()
+
+    # (2) and (5): the kernels against their plain versions
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    res["softmax_compile_ms"] = fwd_k.compile_ms
+    res["softmax_rows"] = _softmax_rows(torch, rtc_ops, flush)
+    res["elementwise"] = _elementwise_rows(torch, rtc, rtc_ops, flush)
+    del flush
+    torch.cuda.empty_cache()
+    # (3) each source compiled (or found on disk) once, the rest hits
+    stats = rtc.stats()
+    res["rtc_stats"] = stats
+    check(stats["compiles"] <= 2 and stats["compiles"]
+          + stats["cache_hits"] == 5,
+          f"rtc compiles and cache hits {stats} (2 sources, 5 kernels)")
+    log(f"rtc: softmax source cold NVRTC compile "
+        f"{res['softmax_compile_ms']!r} ms; process stats {stats}")
+
+    # (6) the numpy CustomOp example at its own size
+    res["custom_softmax_example"] = _custom_softmax_example(torch, mx)
+    log("phase 10 ok: user device code trains through FeedForward")
+    return res
+
+
+def _rtc_line(rtc_res):
+    """B7: the two head kernels launched through rtc.CudaKernel on phase
+    10's path, at the training shape."""
+    out = []
+    for name in ("softmax_ce_forward", "softmax_ce_backward"):
+        r = next(x for x in rtc_res["softmax_rows"] if x["name"] == name
+                 and x["shape"] == [TRAIN_BATCH, 1000])
+        out.append({
+            "name": f"rtc_{name}", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/rtc/softmax_ce.cu",
+            "replaces": "mxnet_tpu/rtc.py:43",
+            "launches": rtc_res["launches"][name],
+            "max_abs_err": max(x["max_abs_err"]
+                               for x in rtc_res["softmax_rows"]
+                               if x["name"] == name),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    return out
+
+
 # -------------------------------------------------------------- main
 def _kernel_line(rows, launches_float, launches_int8):
     def pick(kv):
@@ -1385,13 +1876,14 @@ def main():
                      training["launches_per_step_by_digest"])
     attn = run("attention", phase_attention, torch)
     run("transformer", phase_transformer, torch, mx, profile=args.profile)
+    rtc_res = run("rtc", phase_rtc, torch, mx)
 
     line = {"kernels": _kernel_line(
         rows, serving["launches"]["paged_attention_float"],
         kv["int8"]["launches"]["paged_attention_int8"])
         + _codegen_line(codegen["rows"], train_rows, training["launches"],
                         codegen["launches"])
-        + _flash_line(attn)}
+        + _flash_line(attn) + _rtc_line(rtc_res)}
     report["kernels"] = line["kernels"]
     report["phase_s"]["total"] = time.perf_counter() - t_start
     if args.out:

@@ -15,6 +15,13 @@ mxnet_tpu. Its slices so far:
                      (`csrc/flash_attention.cu`); the transformer tower
                      (`models.get_transformer`) trained through Module
                      with Adam
+  user device code   `rtc.CudaKernel` (CUDA source compiled with NVRTC
+                     and launched on NDArrays) inside custom ops
+                     (`operator`, `sym.Custom`), trained and
+                     checkpointed through `FeedForward` (`model`,
+                     `executor_manager`); `rtc_ops` holds the repo's own
+                     device code (`csrc/rtc/`) and the `rtc_softmax_ce`
+                     head
 
 Kernels are built with nvcc at first use. Entry points run on the CUDA
 device unless the caller names another one (`mx.cpu()`, device="cpu").
@@ -44,12 +51,20 @@ from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import models  # noqa: F401
 from . import parallel  # noqa: F401
+from . import operator  # noqa: F401
+from . import rtc  # noqa: F401
+from . import model  # noqa: F401
+from . import executor_manager  # noqa: F401
+from . import feed_forward  # noqa: F401
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu
+from .context import Context, cpu, current_context, default_context, gpu
+from .feed_forward import FeedForward
 
-__all__ = ["Context", "MXNetError", "base", "callback", "context", "cpu",
-           "current_context", "decoding", "executor", "gpu", "init",
-           "initializer", "io", "lr_scheduler", "metric", "mod", "models",
-           "module", "nd", "ndarray", "ops", "optimizer", "parallel",
-           "passes", "random", "serving", "sym", "symbol", "telemetry",
-           "utils"]
+__all__ = ["Context", "FeedForward", "MXNetError", "base", "callback",
+           "context", "cpu", "current_context", "decoding",
+           "default_context", "executor", "executor_manager",
+           "feed_forward", "gpu", "init", "initializer", "io",
+           "lr_scheduler", "metric", "mod", "model", "models", "module",
+           "nd", "ndarray", "operator", "ops", "optimizer", "parallel",
+           "passes", "random", "rtc", "serving", "sym", "symbol",
+           "telemetry", "utils"]

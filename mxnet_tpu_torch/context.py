@@ -5,7 +5,7 @@ A `Context` names a device (`cpu(0)`, `gpu(i)`) and maps to a
 points run on CUDA unless the caller names another device, and they
 refuse to start when no CUDA device is present rather than carrying on
 on the CPU. `current_context()` is the innermost `with ctx:` scope, else
-`gpu(0)`.
+`default_context()`, which is `gpu(0)`.
 """
 from __future__ import annotations
 
@@ -74,12 +74,19 @@ def gpu(device_id=0):
     return Context("gpu", device_id)
 
 
+def default_context():
+    """The card, gpu(0): the port's entry points run there unless the
+    caller names another context (the JAX package's default is its
+    accelerator, else the host)."""
+    return gpu(0)
+
+
 def current_context():
-    """Innermost `with Context(...)` scope, else gpu(0)."""
+    """Innermost `with Context(...)` scope, else default_context()."""
     stack = getattr(Context._default_ctx, "stack", None)
     if stack:
         return stack[-1]
-    return gpu(0)
+    return default_context()
 
 
 def as_context(device):

@@ -9,9 +9,10 @@ and synchronizes them on get_params.
 
 One device only: `kvstore` may be None or 'local' (with one device
 MXNet uses no store at all); any other store waits for the KVStore
-slice. Not ported: the fused train step (one jit of forward, backward
-and update in the JAX package), cast_compute, sharding plans, shared
-modules (BucketingModule), checkpoint save/load.
+slice (`model._create_kvstore` decides). Not ported: the fused train
+step (one jit of forward, backward and update in the JAX package),
+cast_compute, sharding plans, shared modules (BucketingModule).
+Checkpoints are `model.save_checkpoint` / `load_checkpoint`.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from .. import optimizer as opt
 from ..base import MXNetError
 from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
+from ..model import _create_kvstore, _update_params
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
 
@@ -61,7 +63,9 @@ class Module(BaseModule):
         if len(context) != 1:
             raise MXNetError(
                 f"Module runs on one device in this port, got {context}; "
-                "multi-device data parallelism comes with KVStore")
+                "data parallelism over several devices waits for the "
+                "KVStore of the multi-device slice (ROADMAP.md A.5.2), "
+                "whatever the kvstore argument")
         context[0].torch_device()  # raises when the card is missing
         self._context = context
         self._symbol = symbol
@@ -226,15 +230,11 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        if kvstore not in (None, "local"):
-            raise MXNetError(
-                f"kvstore={kvstore!r}: this port trains on one device with "
-                "no KVStore (None or 'local'); the KVStore comes in a later "
-                "slice")
+        _create_kvstore(kvstore, len(self._context), self._arg_params)
         rescale_grad = 1.0 / self._exec_group.batch_size
         if isinstance(optimizer, str):
             idx2name = dict(enumerate(self._exec_group.param_names))
-            settings = dict(optimizer_params)
+            settings = dict(optimizer_params or ())
             settings.setdefault("rescale_grad", rescale_grad)
             optimizer = opt.create(optimizer, sym=self.symbol,
                                    param_idx2name=idx2name, **settings)
@@ -266,27 +266,9 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
         self._params_dirty = True
-        updater = self._updater
-        indices, weights, grads = [], [], []
-        for index, (arg_list, grad_list) in enumerate(
-                zip(self._exec_group.param_arrays,
-                    self._exec_group.grad_arrays)):
-            if grad_list[0] is None:
-                continue
-            indices.append(index)
-            weights.append(arg_list[0])
-            grads.append(grad_list[0])
-        multi = getattr(self._optimizer, "update_multi", None)
-        if multi is None:
-            for index, w, g in zip(indices, weights, grads):
-                updater(index, g, w)
-            return
-        for index, w in zip(indices, weights):
-            if index not in updater.states:
-                updater.states[index] = self._optimizer.create_state(
-                    index, w)
-        multi(indices, weights, grads,
-              [updater.states[i] for i in indices])
+        _update_params(self._exec_group.param_arrays,
+                       self._exec_group.grad_arrays, self._updater,
+                       len(self._context))
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

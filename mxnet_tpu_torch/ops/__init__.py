@@ -7,7 +7,8 @@ the layers of the image-classification models (Convolution, Pooling,
 BatchNorm, FullyConnected, Dropout, Activation), Concat / flatten /
 reshape / SliceChannel, the SoftmaxOutput, regression and MakeLoss
 heads, the constant sources of the folding pass, the transformer's
-RingAttention (one device) and the adam_update op. The rest of the op
+RingAttention (one device), the adam_update op and the Custom op
+(Python-defined operators, `operator.py`). The rest of the op
 library waits for later slices.
 """
 from . import registry  # noqa: F401
@@ -17,3 +18,4 @@ from . import matrix  # noqa: F401
 from . import nn  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import parallel_ops  # noqa: F401
+from . import custom  # noqa: F401

@@ -5,7 +5,9 @@ scopes, the node-list JSON form (`tojson` gives the same bytes as the
 JAX package for the same graph), shape and type inference, the
 structural key the pass memo and the fusion digests hash, and
 `bind`/`simple_bind` producing an Executor (executor.py) that runs the
-optimized graph eagerly on torch tensors.
+optimized graph eagerly on torch tensors; `save`/`load` keep the JSON in
+a file (a checkpoint's -symbol.json). Every registered op has its
+constructor here, `Custom(..., op_type=...)` included.
 
 Not ported: `Symbol.__call__` composition is refused as in the JAX
 package; `canonical_signature` and the tuner it keys wait.
@@ -341,6 +343,11 @@ class Symbol:
             indent=2,
         )
 
+    def save(self, fname):
+        """Write `tojson()` to `fname` (a checkpoint's -symbol.json)."""
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     # ------------------------------------------------------------- binding
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     **kwargs):
@@ -525,6 +532,12 @@ def Group(symbols):
     for s in symbols:
         outputs.extend(s._outputs)
     return Symbol(outputs)
+
+
+def load(fname):
+    """The Symbol saved in `fname` by `Symbol.save`."""
+    with open(fname) as f:
+        return loads(f.read())
 
 
 def loads(json_str):

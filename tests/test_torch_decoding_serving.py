@@ -221,6 +221,10 @@ def test_import_rule():
         "import mxnet_tpu_torch.models.transformer\n"
         "import mxnet_tpu_torch.ops.parallel_ops\n"
         "import mxnet_tpu_torch.ops.optimizer_ops\n"
+        "import mxnet_tpu_torch.rtc, mxnet_tpu_torch.rtc_ops\n"
+        "import mxnet_tpu_torch.operator, mxnet_tpu_torch.model\n"
+        "import mxnet_tpu_torch.feed_forward\n"
+        "import mxnet_tpu_torch.executor_manager\n"
         "bad = [m for m in sys.modules if m == 'jax' or m == 'mxnet_tpu'"
         " or m.startswith(('jax.', 'jaxlib', 'mxnet_tpu.'))]\n"
         "print(bad)\n"
