@@ -9,7 +9,8 @@ each of which exits non-zero on failure:
 
   1. environment  card name and power limit, torch/CUDA versions, TF32
                   off, the CUDA kernels built from csrc/ (one nvcc per
-                  source, started together)
+                  library, started together; the flash forward is three
+                  libraries, one a dtype)
   2. kernels      each paged-attention kernel against its plain PyTorch
                   version at the serving shapes (B=24 rows, H=16, D=64,
                   P=16, N=1024 pages, Bp in {1, 8, 128}) over float32,
@@ -56,10 +57,18 @@ each of which exits non-zero on failure:
                   attention_reference, and a (1, 16384, 8, 64) causal
                   forward with its peak memory beside the plain
                   version's (the flash kernel launched on this path and
-                  counted); then the kernel against its plain version at
-                  (8, 2048, 8, 64) causal and not in float32 and bf16, the
-                  test shape (2, 64, 4, 16) and Tq != Tk (256 vs 1024),
-                  with its time, bound, plain time and the time of
+                  counted); then each kernel instance's registers, spills,
+                  shared memory and tensor-core instructions (ptxas's
+                  report, cuobjdump -sass; fails if a bf16/f16 instance
+                  has no HMMA or HGMMA), and the kernel against its plain
+                  version at the path's key block (128) at (8, 2048, 8,
+                  64) causal and not in float32 and bf16, causal in f16,
+                  bf16 causal at block_k 64, (1, 16384, 8, 64) bf16
+                  causal, the test shape (2, 64, 4, 16) and Tq != Tk (256
+                  vs 1024), with its time, bound (at the tensor-core
+                  rate of the inputs' type: bf16/f16, or TF32 for
+                  float32, beside the floor of float32's 3xTF32 route,
+                  3x those flops), plain time and the time of
                   scaled_dot_product_attention with the same mask
   9. transformer  models.get_transformer at tools/bench_transformer.py's
                   width (d_model 512, 8 heads, d_ff 1024, 4 layers, causal;
@@ -114,6 +123,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 # dense bf16/fp16 tensor-core rate: the card's bound for work in those types
 BF16_FLOPS_PER_S = 989e12
+# dense TF32 tensor-core rate: the card's bound for float32 operands on
+# the tensor cores (B6's float32 route, 3xTF32, runs three such products
+# for each multiply)
+TF32_FLOPS_PER_S = 495e12
 
 # paged attention against its plain version; the generated fusion
 # kernels are held to their plain chain by passes.codegen.parity_error
@@ -135,9 +148,11 @@ NEAR_TIE = 1e-3
 # version casts its float32 result to the output type once, so where the
 # two float32 values straddle a rounding boundary the casts differ by one
 # ulp (2^-7 of the element in bf16), whatever the kernel's accuracy.
-ATTN_TOL = {"float32": 1e-4, "bf16": 2e-3}
+ATTN_TOL = {"float32": 1e-4, "bf16": 2e-3, "f16": 2e-3}
 ATTN_SHAPE = (8, 2048, 8, 64)          # the transformer's (B, T, H, D)
 LONG_SHAPE = (1, 16384, 8, 64)
+# attention()'s default key block, and so the kernel's key tile on the path
+ATTN_BLOCK_K = 128
 # the transformer of tools/bench_transformer.py (docstring width, defaults)
 TOWER_CFG = dict(d_model=512, num_heads=8, d_ff=1024, num_layers=4)
 TOWER_BATCH, TOWER_SEQ, TOWER_STEPS = 8, 2048, 10
@@ -204,7 +219,7 @@ def phase_environment(torch):
     from mxnet_tpu_torch import kernels
 
     secs = kernels.build_all()
-    log(f"phase 1 ok: kernels {list(kernels.SOURCES)} built in "
+    log(f"phase 1 ok: kernels {list(kernels.LIBRARIES)} built in "
         f"{secs!r} s")
     return card, secs
 
@@ -991,9 +1006,13 @@ def _attn_inputs(torch, b, tq, tk, h, d, dtype, seed):
 
 def _attn_bound(q, k, causal):
     """Least time of one forward: q, k, v read once and o written once
-    over the HBM rate, or 4 D flops per (query, key) pair the top-left
-    causal mask keeps over the rate of the inputs' type (float32 outside
-    the tensor cores; bf16 on them)."""
+    over the HBM rate, or the 4 D flops per (query, key) pair the
+    top-left causal mask keeps over the card's tensor-core rate for the
+    inputs' type (989 TFLOP/s bf16/f16, 495 TF32 for float32). Returns
+    {"ms", "by": "bytes" or "operations", "bytes", "flops", "rate", and
+    "route_ms"}: the floor of B6's float32 route, 3xTF32, which does three
+    TF32 products for each (3x the flops at 495 TFLOP/s); null in
+    bf16/f16, whose route is the bound's."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if causal:
@@ -1003,11 +1022,27 @@ def _attn_bound(q, k, causal):
         pairs = tq * tk
     flops = 4 * b * h * d * pairs
     nbytes = (2 * tq + 2 * tk) * b * h * d * q.element_size()
-    rate = FP32_FLOPS_PER_S if q.element_size() == 4 else BF16_FLOPS_PER_S
+    if q.element_size() == 4:
+        rate = TF32_FLOPS_PER_S
+        rate_name = "TF32 tensor cores at 495 TFLOP/s"
+        route_ms = 3 * flops / rate * 1e3
+    else:
+        rate = BF16_FLOPS_PER_S
+        rate_name = "bf16/f16 tensor cores at 989 TFLOP/s"
+        route_ms = None
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, flops)
+    return {"ms": max(t_bytes, t_ops),
+            "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "rate": rate_name,
+            "route_ms": route_ms}
+
+
+def _bound_text(bound):
+    route = ("" if bound["route_ms"] is None else
+             f"; 3xTF32 route's floor {bound['route_ms']!r} ms")
+    return (f"bound_ms {bound['ms']!r} ({bound['by']}, {bound['rate']}; "
+            f"{bound['flops']} flops, {bound['bytes']} B{route})")
 
 
 def _sdpa(torch, q, k, v, causal):
@@ -1033,13 +1068,17 @@ def _rel_beyond_ulp(torch, out, ref):
     return (excess.max() / ref32.abs().max()).item()
 
 
-def _attn_row(torch, tattn, name, shape, causal, kv, flush, seed):
+_ATTN_DTYPES = {"float32": "float32", "bf16": "bfloat16", "f16": "float16"}
+
+
+def _attn_row(torch, tattn, name, shape, causal, kv, flush, seed,
+              block_k=ATTN_BLOCK_K):
     b, tq, tk, h, d = shape
-    dtype = torch.float32 if kv == "float32" else torch.bfloat16
+    dtype = getattr(torch, _ATTN_DTYPES[kv])
     q, k, v = _attn_inputs(torch, b, tq, tk, h, d, dtype, seed)
-    out = tattn.flash_forward(q, k, v, causal)
+    out = tattn.flash_forward(q, k, v, causal, block_k=block_k)
     torch.cuda.synchronize()
-    ref = tattn.flash_forward_plain(q, k, v, causal)
+    ref = tattn.flash_forward_plain(q, k, v, causal, block_k=block_k)
     check(torch.isfinite(out).all().item(), f"flash {name}: non-finite")
     rel = _rel_beyond_ulp(torch, out, ref)
     err = (out.float() - ref.float()).abs().max().item()
@@ -1047,24 +1086,109 @@ def _attn_row(torch, tattn, name, shape, causal, kv, flush, seed):
           f"beyond one ulp {rel!r} of the output's max > {ATTN_TOL[kv]}")
     lib_err = _rel(torch, _sdpa(torch, q, k, v, causal).transpose(1, 2),
                    ref)
+    del ref
     reps = 20 if tq * tk <= 2048 * 2048 else 5
     row = {"name": name, "shape": [b, tq, tk, h, d], "causal": causal,
-           "kv": kv, "max_abs_err": err, "rel_err": rel,
-           "library_rel_err": lib_err,
+           "kv": kv, "block_k": block_k, "max_abs_err": err,
+           "rel_err": rel, "library_rel_err": lib_err,
+           "instance": tattn.kernel_instance(dtype, d, tattn.kernel_block_k(
+               block_k, tk)),
            "ms": _time_ms(torch, lambda: tattn.flash_forward(
-               q, k, v, causal), flush, reps),
+               q, k, v, causal, block_k=block_k), flush, reps),
            "plain_ms": _time_ms(torch, lambda: tattn.flash_forward_plain(
-               q, k, v, causal), flush, reps),
+               q, k, v, causal, block_k=block_k), flush, reps),
            "library_ms": _time_ms(torch, lambda: _sdpa(
                torch, q, k, v, causal), flush, reps)}
-    (row["bound_ms"], row["bound_by"], row["bytes"],
-     row["flops"]) = _attn_bound(q, k, causal)
-    log(f"flash {name:11s} {kv:7s} causal={causal!s:5s} {row['shape']}: "
-        f"err {err!r} (beyond one ulp, of the max: {rel!r}) ms {row['ms']!r} plain_ms "
+    bound = row["bound"] = _attn_bound(q, k, causal)
+    row["bound_ms"], row["bound_by"] = bound["ms"], bound["by"]
+    log(f"flash {name:11s} {kv:7s} causal={causal!s:5s} {row['shape']} "
+        f"block_k {block_k} {row['instance']}: err {err!r} (beyond one "
+        f"ulp, of the max: {rel!r}) ms {row['ms']!r} plain_ms "
         f"{row['plain_ms']!r} library_ms {row['library_ms']!r} (rel err "
-        f"{lib_err!r}) bound_ms {row['bound_ms']!r} ({row['bound_by']}, "
-        f"{row['flops']} flops, {row['bytes']} B)")
+        f"{lib_err!r}) {_bound_text(bound)}")
     return row
+
+
+def _flash_instances(torch, tattn):
+    """Each B6 instance in the built libraries (one a dtype): registers,
+    spill stores and loads and stack frame (the ptxas report kept at
+    build), warps, stages and dynamic shared memory (as the library
+    reports them), and its tensor-core instructions (HMMA, mma.sync's,
+    and HGMMA, wgmma's, lines of cuobjdump -sass). Fails when a report is
+    missing or a bf16/f16 instance has no tensor-core instruction."""
+    import re
+
+    from mxnet_tpu_torch import kernels
+
+    name_re = re.compile(r"flash_fwd_kernelI\w+?Li(\d+)ELi(\d+)ELi(\d+)E")
+    cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()),
+                             "cuobjdump")
+    rows, sass_runs = [], {}
+    for name in _ATTN_DTYPES.values():          # the three disassemble at once
+        lib = tattn.KERNEL_LIBRARIES[getattr(torch, name)]
+        tattn.kernel_instance(getattr(torch, name), 64)   # built and loaded
+        sass_runs[lib] = subprocess.Popen(
+            [cuobjdump, "-sass", kernels.library_path(lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for kv, name in _ATTN_DTYPES.items():
+        dtype = getattr(torch, name)
+        lib = tattn.KERNEL_LIBRARIES[dtype]
+        report = kernels.build_report(lib)
+        check(report is not None, f"no ptxas report for {lib}")
+        info, cur = {}, None
+        for line in report.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = m.group(1)
+                info[cur] = {}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and cur:
+                info[cur].update(stack=int(m.group(1)),
+                                 spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                info[cur]["registers"] = int(m.group(1))
+        sass_out, sass_err = sass_runs[lib].communicate(timeout=300)
+        check(sass_runs[lib].returncode == 0,
+              f"cuobjdump -sass {lib} failed: {sass_err}")
+        tensor, cur = {}, None
+        for line in sass_out.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = m.group(1)
+                tensor[cur] = {"HMMA": 0, "HGMMA": 0}
+                continue
+            m = re.search(r"\b(HG?MMA)\b", line)
+            if m and cur:
+                tensor[cur][m.group(1)] += 1
+        for fn, r in info.items():
+            m = name_re.search(fn)
+            if not m:
+                continue
+            d, tile_k, stages = (int(x) for x in m.groups())
+            inst = tattn.kernel_instance(dtype, d, tile_k)
+            check(inst["stages"] == stages,
+                  f"{lib} D={d} tile_k={tile_k}: {inst} vs {fn}")
+            counts = tensor.get(fn, {"HMMA": 0, "HGMMA": 0})
+            row = {"kv": kv, "d": d, "tile_k": tile_k, "stages": stages,
+                   "warps": inst["warps"], "smem_bytes": inst["smem_bytes"],
+                   "hmma": counts["HMMA"], "hgmma": counts["HGMMA"], **r}
+            rows.append(row)
+            log(f"flash instance {kv:7s} D={d:3d} tile_k={tile_k:3d} "
+                f"warps={row['warps']} stages={stages}: "
+                f"{r.get('registers')} registers, {r.get('spill_stores')} B "
+                f"spill stores, {r.get('spill_loads')} B spill loads, "
+                f"{r.get('stack')} B stack, {row['smem_bytes']} B shared, "
+                f"{row['hmma']} HMMA, {row['hgmma']} HGMMA")
+    check(len(rows) == 29, f"flash instances in the reports: {len(rows)}")
+    bare = [(r["kv"], r["d"], r["tile_k"]) for r in rows
+            if r["kv"] != "float32" and r["hmma"] + r["hgmma"] == 0]
+    check(not bare, f"bf16/f16 flash instances without tensor-core "
+          f"instructions: {bare}")
+    return rows
 
 
 def _peak_bytes(torch, fn):
@@ -1118,7 +1242,8 @@ def phase_attention(torch):
     check(launches["flash_attention"] == 2,
           f"flash kernel launches on the path {launches} != 2")
     ref, plain_peak = _peak_bytes(
-        torch, lambda: tattn.flash_forward_plain(q, k, v, True))
+        torch, lambda: tattn.flash_forward_plain(q, k, v, True,
+                                                 block_k=ATTN_BLOCK_K))
     rel = _rel(torch, out, ref)
     check(rel <= ATTN_TOL["float32"],
           f"long context: flash vs plain {rel!r}")
@@ -1129,24 +1254,29 @@ def phase_attention(torch):
     long = {"shape": list(LONG_SHAPE), "rel_err": rel,
             "flash_peak_bytes": flash_peak, "plain_peak_bytes": plain_peak,
             "input_bytes": 3 * q.numel() * q.element_size(),
+            "block_k": ATTN_BLOCK_K,
             "ms": _time_ms(torch, lambda: tattn.flash_forward(
-                q, k, v, True), flush, 5),
+                q, k, v, True, block_k=ATTN_BLOCK_K), flush, 5),
             "plain_ms": _time_ms(torch, lambda: tattn.flash_forward_plain(
-                q, k, v, True), flush, 3),
+                q, k, v, True, block_k=ATTN_BLOCK_K), flush, 3),
             "library_ms": _time_ms(torch, lambda: _sdpa(torch, q, k, v,
                                                         True), flush, 5)}
-    long["bound_ms"], long["bound_by"], _, _ = _attn_bound(q, k, True)
+    bound = long["bound"] = _attn_bound(q, k, True)
+    long["bound_ms"], long["bound_by"] = bound["ms"], bound["by"]
     res["long_context"] = long
-    log(f"attention: long context {list(LONG_SHAPE)} float32 causal: "
-        f"flash {long['ms']!r} ms, peak {flash_peak} B above the inputs; "
-        f"plain {long['plain_ms']!r} ms, peak {plain_peak} B; library "
-        f"{long['library_ms']!r} ms; bound {long['bound_ms']!r} ms "
-        f"({long['bound_by']}); rel err {rel!r}; flash launches on the "
+    log(f"attention: long context {list(LONG_SHAPE)} float32 causal, "
+        f"block_k {ATTN_BLOCK_K}: flash {long['ms']!r} ms, peak "
+        f"{flash_peak} B above the inputs; plain {long['plain_ms']!r} ms, "
+        f"peak {plain_peak} B; library {long['library_ms']!r} ms; "
+        f"{_bound_text(bound)}; rel err {rel!r}; flash launches on the "
         f"path {launches}")
     del q, k, v
     torch.cuda.empty_cache()
 
-    # (b) the kernel against its plain version at each shape
+    # (b) the kernel against its plain version at each shape, at the
+    # path's key block; the instances' registers, spills, shared memory
+    # and tensor-core instructions
+    res["instances"] = _flash_instances(torch, tattn)
     rows = []
     seed = 20
     for kv in ("float32", "bf16"):
@@ -1157,6 +1287,15 @@ def phase_attention(torch):
         rows.append(_attn_row(torch, tattn, "unequal",
                               (1, 256, 1024, 8, 64), True, kv, flush, seed))
         seed += 1
+    rows.append(_attn_row(torch, tattn, "transformer", (b, t, t, h, d),
+                          True, "f16", flush, seed))
+    seed += 1
+    rows.append(_attn_row(torch, tattn, "transformer", (b, t, t, h, d),
+                          True, "bf16", flush, seed, block_k=64))
+    seed += 1
+    rows.append(_attn_row(torch, tattn, "long", (lb, lt, lt, lh, ld), True,
+                          "bf16", flush, seed))
+    seed += 1
     for causal in (True, False):
         rows.append(_attn_row(torch, tattn, "test", (2, 64, 64, 4, 16),
                               causal, "float32", flush, seed))
@@ -1891,7 +2030,8 @@ def main():
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1, sort_keys=True, default=str)
-    log(f"total {report['phase_s']['total']!r} s")
+    log(f"total {report['phase_s']['total']!r} s (kernel build "
+        f"{build_s!r} s; each phase's s: {json.dumps(report['phase_s'])})")
     log(card)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

@@ -1,14 +1,21 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Each kernel source `csrc/<name>.cu` has a plain C interface. At first
-use it is compiled with nvcc for Hopper (`sm_90a`) into a shared
-library under `mxnet_tpu_torch/_build/` (named by a digest of the
-source and flags, so an edited source rebuilds) and loaded with
-ctypes. Nothing is compiled when the package is imported, and nothing
-outside the package's sources is used.
+Each kernel library has a plain C interface. At first use its source
+`csrc/<source>.cu` is compiled with nvcc for Hopper (`sm_90a`) into a
+shared library under `mxnet_tpu_torch/_build/` (named by a digest of
+the source, the headers under `csrc/` and the flags, so an edited
+source rebuilds) and loaded with ctypes. A library is named after its
+source, or builds one source with its own defines (`LIBRARIES`: the
+flash-attention forward once a dtype, so its instances compile in three
+processes). Nothing is compiled when the package is imported, and
+nothing outside the package's sources is used.
 
-    kernels.build_all()              # every source, one nvcc each, in parallel
+    kernels.build_all()              # every library, one nvcc each, in parallel
     lib = kernels.load("paged_attention")
+
+Each build keeps the compiler's output (ptxas's registers, spills and
+shared memory of every kernel, from `-Xptxas -v`) beside its library:
+`build_report(name)` reads it.
 
 Generated sources (the fusion-group kernels of passes/codegen.py) go
 through the same compiler: `build_generated([(tag, text), ...])` writes
@@ -33,15 +40,24 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
-SOURCES = ("paged_attention", "flash_attention")
+# library name -> (source under csrc/, extra nvcc flags)
+LIBRARIES = {
+    "paged_attention": ("paged_attention", ()),
+    "flash_attention_f32": ("flash_attention", ("-DMX_FLASH_DTYPE=0",)),
+    "flash_attention_bf16": ("flash_attention", ("-DMX_FLASH_DTYPE=1",)),
+    "flash_attention_f16": ("flash_attention", ("-DMX_FLASH_DTYPE=2",)),
+}
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+_BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the hand-written sources hold many template instances: nvcc optimizes
+# them in parallel threads
+NVCC_FLAGS = _BASE_FLAGS + ("-split-compile=0",)
 
 # Generated fusion kernels compile without multiply-add contraction, so
 # a chain rounds after every op as its plain version (one PyTorch kernel
 # per op) does, and the two agree bit for bit on +, -, * and /.
-GEN_NVCC_FLAGS = NVCC_FLAGS + ("-fmad=false",)
+GEN_NVCC_FLAGS = _BASE_FLAGS + ("-fmad=false",)
 
 _lock = threading.Lock()
 _libs = {}
@@ -67,18 +83,37 @@ def nvcc_path():
 
 
 def _source(name):
-    if name not in SOURCES:
-        raise MXNetError(f"unknown kernel source {name!r}")
-    return os.path.join(CSRC_DIR, f"{name}.cu")
+    """(source path, nvcc flags) of library `name`."""
+    if name not in LIBRARIES:
+        raise MXNetError(f"unknown kernel library {name!r}")
+    src, defines = LIBRARIES[name]
+    return os.path.join(CSRC_DIR, f"{src}.cu"), NVCC_FLAGS + defines
 
 
 def library_path(name):
-    """Where the built library of `name` lives (digest of source +
-    flags in the file name)."""
-    with open(_source(name), "rb") as f:
+    """Where the built library of `name` lives (digest of source,
+    headers and flags in the file name)."""
+    src, flags = _source(name)
+    with open(src, "rb") as f:
         digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            f.read() + _headers_digest().encode()
+            + " ".join(flags).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def report_path(lib):
+    """Where the compiler's output for library `lib` is kept."""
+    return os.path.splitext(lib)[0] + ".ptxas.txt"
+
+
+def build_report(name):
+    """The compiler's output of kernel library `name`'s build, or None
+    when the library was built without one kept."""
+    path = report_path(library_path(name))
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return f.read()
 
 
 def _compile(jobs):
@@ -106,18 +141,21 @@ def _compile(jobs):
                 os.unlink(tmp)
             errors.append(f"nvcc failed for {os.path.basename(src)}:\n{log}")
         else:
+            with open(report_path(out), "w") as f:
+                f.write(log)
             os.replace(tmp, out)
     if errors:
         raise MXNetError("\n".join(errors))
 
 
 def _job(name):
-    return _source(name), library_path(name), NVCC_FLAGS
+    src, flags = _source(name)
+    return src, library_path(name), flags
 
 
-def build_all(names=SOURCES):
-    """Compile every named source that is not built yet, one nvcc
-    process per source, all started together. Returns the wall
+def build_all(names=tuple(LIBRARIES)):
+    """Compile every named library that is not built yet, one nvcc
+    process per library, all started together. Returns the wall
     seconds spent."""
     t0 = time.perf_counter()
     with _lock:

@@ -25,9 +25,14 @@ port alike.
 
 `block_q` and `block_k` decide the reference's divisibility check (Tq
 and Tk must divide by min(block, T)), so the same inputs are taken and
-refused. On the CPU, `block_k` is also the plain version's key block, so
-p is rounded where the TPU kernel rounds it; the CUDA kernel's tiles are
-its own (64 query rows by 64 keys).
+refused. `block_k` is also the key block over which p is rounded against
+the running max, as in the TPU kernel: the plain version's blocks on the
+CPU, and on the card the kernel's key tile where it is 64 or 128 (or
+covers all of Tk <= 128); any other `block_k` runs the kernel in 64-key
+tiles, and its bf16/f16 rounding of p then follows 64-key blocks
+(`kernel_block_k`, the one place that maps a block onto a tile). Every
+entry point defaults to 128, the TPU kernel's block. The kernel's query
+tiles are its own (64 or 128 rows).
 
 `flash_forward.launches` counts the kernel's launches, so a run can show
 that its path went through the kernel.
@@ -45,9 +50,15 @@ NEG_INF = -1e30
 
 # the kernel's head_dim instances go up to 256 (csrc/flash_attention.cu)
 MAX_HEAD_DIM = 256
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_TILE_Q = 64
+# the kernel's library for each dtype (csrc/flash_attention.cu, built once
+# a dtype)
+KERNEL_LIBRARIES = {torch.float32: "flash_attention_f32",
+                    torch.bfloat16: "flash_attention_bf16",
+                    torch.float16: "flash_attention_f16"}
+_TILE_Q = 64          # the kernel's smallest query tile: the grid check
 _MAX_GRID_Y = 65535
+# the kernel's key tiles (csrc/flash_attention.cu)
+_KERNEL_TILES = (64, 128)
 
 
 def _default_scale(q, scale):
@@ -70,7 +81,7 @@ def attention_reference(q, k, v, causal=False, scale=None):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
-def flash_forward_plain(q, k, v, causal=False, scale=None, block_k=64):
+def flash_forward_plain(q, k, v, causal=False, scale=None, block_k=128):
     """Plain PyTorch version of the flash forward, with its arithmetic:
     float32 scores, the top-left causal mask with -1e30, and the online
     softmax over blocks of `block_k` keys written out. p is exp(s - m) at
@@ -78,9 +89,10 @@ def flash_forward_plain(q, k, v, causal=False, scale=None, block_k=64):
     the PV product (the TPU kernel's p.astype(v.dtype)), then carried to
     the final max by exp(m - m_final) in float32, as the kernel's
     correction factors carry it; l sums the unrounded p; the output is
-    divided by l and cast to q's dtype. The CUDA kernel's blocks are 64
-    keys (the default); on the CPU `attention` passes its block_k, the
-    TPU kernel's. In float32 the blocks change nothing but rounding.
+    divided by l and cast to q's dtype. `attention` passes its block_k,
+    the TPU kernel's; the CUDA kernel's key tile follows it
+    (`kernel_block_k`). In float32 the blocks change nothing but
+    rounding.
     Holds the (B, H, Tq, Tk) scores: O(T^2) memory. Runs on any device;
     the package takes it only for CPU tensors."""
     tq, tk = q.shape[1], k.shape[1]
@@ -109,21 +121,27 @@ def flash_forward_plain(q, k, v, causal=False, scale=None, block_k=64):
 
 
 # ------------------------------------------------------------------ cuda
-_lib = None
+_libs = {}
 
 
-def _kernel_fn():
-    global _lib
-    if _lib is None:
+def _kernel_lib(dtype):
+    """The ctypes handle of the kernel's library for `dtype`, built on
+    first use."""
+    lib = _libs.get(dtype)
+    if lib is None:
         from .. import kernels
 
-        lib = kernels.load("flash_attention")
+        lib = kernels.load(KERNEL_LIBRARIES[dtype])
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_forward.argtypes = (
             [ptr] * 5 + [i32] * 5 + [ctypes.c_float, i32, i32, ptr])
         lib.flash_attention_forward.restype = i32
-        _lib = lib
-    return _lib.flash_attention_forward
+        lib.flash_attention_instance.argtypes = [i32, i32, ptr]
+        lib.flash_attention_instance.restype = i32
+        lib.flash_attention_whole_chunks.argtypes = [ptr] * 5 + [i32]
+        lib.flash_attention_whole_chunks.restype = i32
+        _libs[dtype] = lib
+    return lib
 
 
 def _check_cuda(q, k, v):
@@ -138,7 +156,7 @@ def _check_cuda(q, k, v):
         if t.dtype != q.dtype:
             raise MXNetError(f"flash attention: {name} is {t.dtype}, q is "
                              f"{q.dtype}")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in KERNEL_LIBRARIES:
         raise MXNetError(
             f"flash attention kernel takes float32, bfloat16 or float16, "
             f"got {q.dtype}")
@@ -166,9 +184,54 @@ def _check_cuda(q, k, v):
                              "not contiguous")
 
 
-def flash_forward(q, k, v, causal=False, scale=None):
+def kernel_block_k(block_k, tk):
+    """The kernel's key tile for a key block of `block_k` over Tk keys:
+    `block_k` where it is 64 or 128; the smallest tile that holds all
+    of Tk where `block_k` does (one block either way); else 64. The
+    plain version at `block_k` rounds p over the same blocks as the
+    kernel at this tile (float32 at D > 128 takes 64-key tiles whatever
+    this says, and rounds nothing: `kernel_instance`)."""
+    if block_k in _KERNEL_TILES:
+        return block_k
+    if block_k >= tk:
+        for tile in _KERNEL_TILES:
+            if tile >= tk:
+                return tile
+    return _KERNEL_TILES[0]
+
+
+def kernel_instance(dtype, head_dim, tile_k=128):
+    """The kernel instance a call at key tile `tile_k` (64 or 128,
+    `kernel_block_k`) takes, as its library reports it: {"d": padded
+    head_dim, "tile_k", "stages", "smem_bytes", "warps"}. Loads (and, the
+    first time, builds) the library."""
+    out = (ctypes.c_int * 5)()
+    err = _kernel_lib(dtype).flash_attention_instance(head_dim, tile_k, out)
+    if err != 0:
+        raise MXNetError(f"flash attention: no instance for {dtype}, "
+                         f"head_dim {head_dim}, tile_k {tile_k}")
+    return dict(zip(("d", "tile_k", "stages", "smem_bytes", "warps"), out))
+
+
+def _strides(*tensors):
+    return (ctypes.c_int64 * 12)(*[s for t in tensors for s in t.stride()[:3]])
+
+
+def kernel_staging(q, k, v, out):
+    """How the kernel stages these CUDA tensors, as its library decides:
+    "cp.async" (whole 16-byte chunks: head_dim, every stride and every
+    base address a multiple of 16 bytes) or "element" (element by
+    element into the zero-padded tile)."""
+    whole = _kernel_lib(q.dtype).flash_attention_whole_chunks(
+        *[ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)],
+        _strides(q, k, v, out), q.shape[-1])
+    return "cp.async" if whole else "element"
+
+
+def flash_forward(q, k, v, causal=False, scale=None, block_k=128):
     """Launch the flash forward kernel on CUDA tensors in the (B, T, H, D)
-    layout (read through their strides; the head_dim axis contiguous)."""
+    layout (read through their strides; the head_dim axis contiguous),
+    in key tiles of `kernel_block_k(block_k, Tk)`."""
     _check_cuda(q, k, v)
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -178,15 +241,14 @@ def flash_forward(q, k, v, causal=False, scale=None):
         return out
     if tk == 0:
         raise MXNetError("flash attention: no keys (Tk == 0)")
-    strides = (ctypes.c_int64 * 12)(*[
-        s for t in (q, k, v, out) for s in t.stride()[:3]])
-    fn = _kernel_fn()
+    strides = _strides(q, k, v, out)
+    fn = _kernel_lib(q.dtype).flash_attention_forward
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
                  ctypes.c_void_p(v.data_ptr()),
                  ctypes.c_void_p(out.data_ptr()), strides, b, h, tq, tk, d,
-                 float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
+                 float(scale), int(bool(causal)), kernel_block_k(block_k, tk),
                  ctypes.c_void_p(stream))
     if err != 0:
         raise MXNetError(f"flash_attention_forward launch failed: CUDA "
@@ -208,13 +270,13 @@ def launch_counts():
 
 # ----------------------------------------------------------- entry points
 def _flash_forward(q, k, v, causal, scale, block_k):
-    """The CUDA kernel for CUDA tensors, the plain version (in blocks of
-    `block_k` keys, the TPU kernel's) for CPU tensors."""
+    """The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors, both over key blocks of `block_k` (the TPU kernel's)."""
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, causal, scale, block_k)
     if q.device.type != "cuda":
         raise MXNetError(f"flash attention has no kernel for {q.device}")
-    return flash_forward(q, k, v, causal, scale)
+    return flash_forward(q, k, v, causal, scale, block_k)
 
 
 class _FlashAttention(torch.autograd.Function):

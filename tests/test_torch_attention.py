@@ -181,6 +181,77 @@ def test_bf16_flash_matches_jax(causal):
     np.testing.assert_allclose(out.float().numpy(), j_out, **BF16_TOL)
 
 
+def test_kernel_block_k_follows_the_callers_block():
+    """The CUDA kernel's key tile: block_k where it is 64 or 128, the
+    tile that holds all of Tk where block_k does, else 64."""
+    kb = tattn.kernel_block_k
+    assert (kb(64, 4096), kb(128, 4096), kb(128, 128)) == (64, 128, 128)
+    assert (kb(37, 37), kb(100, 100), kb(128, 100)) == (64, 128, 128)
+    assert (kb(32, 256), kb(16, 64), kb(256, 2048), kb(200, 200)) == (
+        64, 64, 64, 64)
+
+
+def test_block_k_defaults_are_the_tpu_kernels():
+    """Every flash entry point of the port defaults to the JAX package's
+    key block, so a call without block_k rounds p over the same blocks
+    on the CPU, on the card and in the JAX package."""
+    import inspect
+
+    def default(fn):
+        return inspect.signature(fn).parameters["block_k"].default
+
+    want = default(jattn.attention)
+    assert want == 128
+    assert [default(f) for f in (tattn.attention, tattn.flash_forward,
+                                 tattn.flash_forward_plain)] == [want] * 3
+    assert inspect.signature(tattn.kernel_instance).parameters[
+        "tile_k"].default == tattn.kernel_block_k(want, 4096)
+
+
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_block_k_matches_jax(block_k, causal):
+    """bf16 p is rounded against the running max of each key block of
+    block_k, in both packages: the port at the JAX package's block_k
+    agrees within one ulp, and on more elements exactly than the port at
+    the other block does."""
+    qkv = _qkv(b=1, tq=256, h=2, d=16, seed=8)
+    jq = [jnp.asarray(a, dtype=jnp.bfloat16) for a in qkv]
+    j_out = np.asarray(jattn.attention(
+        *jq, causal=causal, impl="flash", block_q=block_k,
+        block_k=block_k, interpret=True).astype(jnp.float32))
+    tq = _t(qkv, torch.bfloat16)
+    outs = {bk: tattn.attention(*tq, causal=causal, impl="flash",
+                                block_q=bk, block_k=bk).float().numpy()
+            for bk in (64, 128)}
+    np.testing.assert_allclose(outs[block_k], j_out, **BF16_TOL)
+    other = 64 if block_k == 128 else 128
+    assert ((outs[block_k] != j_out).sum()
+            < (outs[other] != j_out).sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_l_sums_unrounded_p(dtype):
+    """l adds the float32 p; only the PV product takes p rounded to v's
+    dtype (the TPU kernel's p.astype(v.dtype)): on inputs where the two
+    readings give different outputs, the plain version and the JAX
+    package's kernel give the unrounded one."""
+    from test_torch_attention_cuda import unrounded_p_case
+
+    q, k, v, want, rounded_l = unrounded_p_case(dtype)
+    assert want != rounded_l
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}[dtype]
+    jq = [jnp.asarray(t.float().numpy(), dtype=jdt) for t in (q, k, v)]
+    for block_k in (64, 128):
+        out = tattn.flash_forward_plain(q, k, v, False, scale=1.0,
+                                        block_k=block_k)
+        assert (out[..., 0].float() == want).all(), block_k
+        j_out = jattn.attention(*jq, scale=1.0, impl="flash", block_q=4,
+                                block_k=block_k, interpret=True)
+        np.testing.assert_array_equal(
+            np.asarray(j_out.astype(jnp.float32)), out.float().numpy())
+
+
 def test_fully_masked_rows_are_uniform():
     """Bottom-right alignment with Tq > Tk leaves the first rows without
     keys: -1e30 everywhere gives them uniform weights, in both."""

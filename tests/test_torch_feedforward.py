@@ -136,6 +136,50 @@ def _equal_arrays(mx):
             "arg:z": mx.nd.array(np.zeros((0, 3), np.float32))}
 
 
+_FRESH_JSON = (
+    "import sys; sys.path.insert(0, 'tests')\n"
+    "import mxnet_tpu as jmx, mxnet_tpu_torch as tmx\n"
+    "from test_torch_feedforward import _mlp\n"
+    "sys.stdout.write(_mlp(jmx).tojson() + '\\0' + _mlp(tmx).tojson())\n")
+
+
+def _symbol_state(sym_module):
+    """The process-global state a package's graph construction reads:
+    the open attribute scopes and name prefixes of this thread."""
+    return {"attr_scope": sym_module.AttrScope.current_attrs(),
+            "prefix": sym_module.Prefix.current_prefix()}
+
+
+def _symbol_mismatch(tb, jb):
+    """What a mismatch of the two -symbol.json files tells: each file's
+    first difference from the JSON a fresh process gives for the same
+    graph, this process's scope state in both packages, and both
+    files."""
+    import subprocess
+    import sys
+
+    import mxnet_tpu.symbol as jsym
+    import mxnet_tpu_torch.symbol as tsym
+
+    res = subprocess.run(
+        [sys.executable, "-c", _FRESH_JSON], capture_output=True,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        env=dict(os.environ, JAX_PLATFORMS="cpu"), timeout=300)
+    fresh = res.stdout.split(b"\0")
+    if len(fresh) != 2:
+        fresh = [b"", b""]
+
+    def first_diff(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+
+    return (f"-symbol.json: torch differs from a fresh process's JSON at "
+            f"byte {first_diff(tb, fresh[1])}, jax at "
+            f"{first_diff(jb, fresh[0])}; scopes: jax "
+            f"{_symbol_state(jsym)}, torch {_symbol_state(tsym)}"
+            f"; torch {tb!r}, jax {jb!r}")
+
+
 def test_params_and_symbol_files_byte_identical(tmp_path):
     paths = {}
     for name, mx in (("jax", jmx), ("torch", tmx)):
@@ -151,6 +195,8 @@ def test_params_and_symbol_files_byte_identical(tmp_path):
             jb = f.read()
         with open(paths["torch"] + suffix, "rb") as f:
             tb = f.read()
+        if suffix == "-symbol.json":
+            assert tb == jb, _symbol_mismatch(tb, jb)
         assert tb == jb, f"{suffix}: torch {tb!r}, jax {jb!r}"
     sym, arg, aux = tmx.model.load_checkpoint(paths["jax"], 3)
     assert sym.list_arguments() == _mlp(tmx).list_arguments()
