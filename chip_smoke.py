@@ -14,8 +14,14 @@ each of which exits non-zero on failure:
   2. kernels      each paged-attention kernel against its plain PyTorch
                   version at the serving shapes (B=24 rows, H=16, D=64,
                   P=16, N=1024 pages, Bp in {1, 8, 128}) over float32,
-                  bf16 and int8 pools; kernel / plain / library time and
-                  the kernel's lower bound on this card
+                  bf16 and int8 pools; kernel / plain / library time, the
+                  kernel's time also after a clean (read) flush of L2, its
+                  lower bound on this card and its share of it, the pages
+                  the rows read (and how many are distinct) with their
+                  rate, the split's chunk count, and each kernel instance's
+                  registers, spills and shared memory (ptxas's report);
+                  then batch invariance on the card: a row alone, in a
+                  full batch, and at two table widths, bit-identical
   3. serving      DecodedModel at the docs/serving.md width (vocab 32000,
                   d_model 1024, 16 layers, 16 heads, d_ff 4096, max_len
                   2048; random weights from seed 0), max_batch 8, 1024
@@ -110,6 +116,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -225,6 +232,123 @@ def phase_environment(torch):
 
 
 # ------------------------------------------------------------ phase 2
+def _ptxas_info(report):
+    """Registers, spill stores and loads and stack frame of each kernel
+    entry in a ptxas -v report (a library's build_report)."""
+    info, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            info[cur] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            info[cur].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            info[cur]["registers"] = int(m.group(1))
+    return info
+
+
+_PAGED_NAME = re.compile(
+    r"paged_split_kernelI(\w+?)Lb[01]ELi(\d+)ELi\d+ELi\d+ELi(\d+)E")
+_PAGED_TYPES = {"f": "float32", "13__nv_bfloat16": "bf16", "a": "int8"}
+
+
+def _paged_instances(torch, attention):
+    """Each B4/B5 kernel in the built library: the split kernel's
+    serving and generic instance for each page type, and the merge, with
+    ptxas's registers, spills and stack; the serving instances' heads a
+    block, stages and dynamic shared memory as the library reports
+    them."""
+    from mxnet_tpu_torch import kernels
+
+    report = kernels.build_report("paged_attention")
+    check(report is not None, "no ptxas report for paged_attention")
+    dtypes = {"float32": torch.float32, "bf16": torch.bfloat16,
+              "int8": torch.int8}
+    out = {}
+    for fn, r in _ptxas_info(report).items():
+        m = _PAGED_NAME.search(fn)
+        if m:
+            kv, serving = _PAGED_TYPES[m.group(1)], int(m.group(2)) > 0
+            key = f"{kv} {'serving' if serving else 'generic'}"
+            row = {"stages": int(m.group(3)), **r}
+            if serving:
+                inst = attention.kernel_instance(dtypes[kv], 16, 64, 16)
+                check(inst["serving"] and inst["stages"] == row["stages"],
+                      f"paged instance {key}: {inst} vs {fn}")
+                row.update(heads_per_block=inst["heads_per_block"],
+                           smem_bytes=inst["smem_bytes"])
+        elif "paged_merge_kernel" in fn:
+            key, row = "merge", dict(r)
+        else:
+            continue
+        out[key] = row
+        log(f"paged instance {key:16s}: {row.get('registers')} registers, "
+            f"{row.get('spill_stores')} B spill stores, "
+            f"{row.get('spill_loads')} B spill loads, {row.get('stack')} B "
+            f"stack, {row.get('stages', '-')} stages, "
+            f"{row.get('smem_bytes', '-')} B shared")
+    check(len(out) == 7, f"paged instances in the report: {sorted(out)}")
+    return out
+
+
+def _batch_invariance(torch, attention, quant, dev):
+    """A row's output on the card is bit-identical alone and in a full
+    batch of 24, at two table widths: one chunk (8 pages, written by the
+    split kernel) at Bp 8 and 128, and 40 pages (five chunks, merged) at
+    Bp 64 and 128; per page type. Fails on any difference."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, h, d, p, n = 24, 16, 64, 16, 256
+    q = torch.randn(b, h, d, generator=g, device=dev)
+    k = torch.randn(n, p, h, d, generator=g, device=dev)
+    v = torch.randn(n, p, h, d, generator=g, device=dev)
+    others = torch.randint(1, n, (b - 1, 128), generator=g, device=dev,
+                           dtype=torch.int32)
+    other_len = torch.randint(1, 128 * p + 1, (b - 1,), generator=g,
+                              device=dev, dtype=torch.int32)
+    checked = 0
+    for kv in ("float32", "bf16", "int8"):
+        if kv == "int8":
+            kq, ks, _ = quant.quantize_values(k)
+            vq, vs, _ = quant.quantize_values(v)
+            kp, vp = quant.KVPool(kq, ks), quant.KVPool(vq, vs)
+        else:
+            dt = torch.bfloat16 if kv == "bf16" else torch.float32
+            kp, vp = quant.KVPool(k.to(dt)), quant.KVPool(v.to(dt))
+        for pages, widths in ((8, (8, 128)), (40, (64, 128))):
+            ids = torch.randint(1, n, (pages,), generator=g, device=dev,
+                                dtype=torch.int32)
+            for length in ((pages - 1) * p + 1, pages * p):
+                outs = []
+                for bp in widths:
+                    table = torch.zeros((1, bp), dtype=torch.int32,
+                                        device=dev)
+                    table[0, :pages] = ids
+                    ln = torch.tensor([length], dtype=torch.int32,
+                                      device=dev)
+                    outs.append(attention.paged_attention(
+                        q[:1], kp, vp, table, ln)[0])
+                    table = torch.cat([table, others[:, :bp]])
+                    ln = torch.cat([ln, other_len.clamp(max=bp * p)])
+                    outs.append(attention.paged_attention(
+                        q, kp, vp, table, ln)[0])
+                for o in outs[1:]:
+                    check(torch.equal(o, outs[0]),
+                          f"batch invariance {kv}: a row of {length} "
+                          f"tokens differs across batches/widths {widths} "
+                          f"(max {(o - outs[0]).abs().max().item()!r})")
+                checked += len(outs)
+    log(f"batch invariance: {checked} outputs over float32, bf16 and int8 "
+        "bit-identical alone, in a batch of 24 and across table widths")
+    return checked
+
+
 def _kernel_case(torch, quant, kv, bp, seed, dev, b=24, h=16, d=64,
                  p=16, n=1024):
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -272,19 +396,45 @@ def _bound(q, kp, table, lengths, p):
                                  else "operations"), nbytes
 
 
-def _time_ms(torch, fn, flush, reps=20):
+def _page_refs(kp, table, lengths):
+    """(pages the rows read, distinct pages among them, bytes of K and V
+    pages, scale planes included, the rows read): what the kernel's
+    copies move, where the bound counts each distinct page once."""
+    p = kp.data.shape[1]
+    tab = table.cpu().numpy()
+    lens = lengths.cpu().numpy()
+    refs, used = 0, set()
+    for row in range(tab.shape[0]):
+        n = (min(-(-int(lens[row]) // p), tab.shape[1]) if lens[row] > 0
+             else tab.shape[1])
+        refs += n
+        used.update(tab[row, :n].tolist())
+    page = kp.data[0].numel() * kp.data.element_size()
+    if kp.scale is not None:
+        page += kp.scale[0].numel() * 4
+    return refs, len(used), 2 * refs * page
+
+
+def _time_ms(torch, fn, flush, reps=20, clean=False):
     """Mean device time of one call of fn with a cold L2: the calls are
     queued behind a GPU sleep (so the host's launch overhead is not on
     the device's clock), each after a 128 MB write that flushes L2, and
-    each timed with its own pair of CUDA events."""
+    each timed with its own pair of CUDA events. The write leaves L2
+    dirty, so fn's first reads also write back up to 50 MB of the flush;
+    `clean` flushes by reading the 128 MB instead (L2 holds clean lines,
+    and fn's time is its own traffic)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     pairs = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    sink = torch.empty((), dtype=flush.dtype, device=flush.device)
     torch.cuda._sleep(50_000_000)     # ~25 ms of spinning: the host runs ahead
     for start, end in pairs:
-        flush.zero_()
+        if clean:
+            torch.sum(flush, dim=0, out=sink)
+        else:
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -296,6 +446,7 @@ def phase_kernels(torch):
     from mxnet_tpu_torch.decoding import attention, quant
 
     dev = torch.device("cuda")
+    instances = _paged_instances(torch, attention)
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
     rows = []
     for kv in ("float32", "bf16", "int8"):
@@ -313,6 +464,9 @@ def phase_kernels(torch):
                   f"kernel {kv} Bp={bp}: max abs err {err!r} > {TOL[kv]}")
             ms = _time_ms(torch, lambda: attention.paged_attention(*args),
                           flush)
+            ms_clean = _time_ms(
+                torch, lambda: attention.paged_attention(*args), flush,
+                clean=True)
             plain_ms = _time_ms(
                 torch, lambda: attention.paged_attention_plain(*args),
                 flush)
@@ -335,18 +489,40 @@ def phase_kernels(torch):
                                                   attn_mask=mask), flush)
             bound_ms, bound_by, nbytes = _bound(q, kp, table, lengths,
                                                 kp.data.shape[1])
+            inst = instances[f"{kv} serving"]
+            chunks = -(-bp // attention.CHUNK_PAGES)
+            refs, distinct, ref_bytes = _page_refs(kp, table, lengths)
             row = {"kv": kv, "bp": bp, "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
                    "library_max_abs_err": lib_err, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "bytes": nbytes}
+                   "bound_by": bound_by, "bytes": nbytes,
+                   "bound_share": bound_ms / ms, "ms_clean_l2": ms_clean,
+                   "bound_share_clean_l2": bound_ms / ms_clean,
+                   "chunks": chunks, "page_refs": refs,
+                   "distinct_pages": distinct, "ref_bytes": ref_bytes,
+                   "ref_tb_per_s_clean_l2": ref_bytes / ms_clean / 1e9,
+                   "registers": inst["registers"],
+                   "spill_bytes": inst["spill_stores"] + inst["spill_loads"],
+                   "smem_bytes": inst["smem_bytes"]}
             rows.append(row)
             log(f"kernel {kv:7s} Bp={bp:3d}: err {err!r} ms {ms!r} "
                 f"plain_ms {plain_ms!r} library_ms {lib_ms!r} bound_ms "
-                f"{bound_ms!r} ({bound_by}, {nbytes} B)")
+                f"{bound_ms!r} ({bound_by}, {nbytes} B) share of bound "
+                f"{row['bound_share']!r}; after a clean flush ms "
+                f"{ms_clean!r} share {row['bound_share_clean_l2']!r}; "
+                f"the rows read {refs} pages ({distinct} distinct, "
+                f"{ref_bytes} B: {row['ref_tb_per_s_clean_l2']!r} TB/s "
+                f"after a clean flush); "
+                f"{chunks} chunk(s), "
+                f"{inst['registers']} registers, {row['spill_bytes']} B "
+                f"spills, {inst['smem_bytes']} B shared")
             del q, kp, vp, table, lengths, kc, vc, mask, args
     del flush
     torch.cuda.empty_cache()
-    log("phase 2 ok: kernels agree with the plain version")
+    _batch_invariance(torch, attention, quant, dev)
+    torch.cuda.empty_cache()
+    log("phase 2 ok: kernels agree with the plain version and are batch "
+        "invariant")
     return rows
 
 
@@ -1116,8 +1292,6 @@ def _flash_instances(torch, tattn):
     reports them), and its tensor-core instructions (HMMA, mma.sync's,
     and HGMMA, wgmma's, lines of cuobjdump -sass). Fails when a report is
     missing or a bf16/f16 instance has no tensor-core instruction."""
-    import re
-
     from mxnet_tpu_torch import kernels
 
     name_re = re.compile(r"flash_fwd_kernelI\w+?Li(\d+)ELi(\d+)ELi(\d+)E")
@@ -1135,22 +1309,7 @@ def _flash_instances(torch, tattn):
         lib = tattn.KERNEL_LIBRARIES[dtype]
         report = kernels.build_report(lib)
         check(report is not None, f"no ptxas report for {lib}")
-        info, cur = {}, None
-        for line in report.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                cur = m.group(1)
-                info[cur] = {}
-                continue
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", line)
-            if m and cur:
-                info[cur].update(stack=int(m.group(1)),
-                                 spill_stores=int(m.group(2)),
-                                 spill_loads=int(m.group(3)))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and cur:
-                info[cur]["registers"] = int(m.group(1))
+        info = _ptxas_info(report)
         sass_out, sass_err = sass_runs[lib].communicate(timeout=300)
         check(sass_runs[lib].returncode == 0,
               f"cuobjdump -sass {lib} failed: {sass_err}")

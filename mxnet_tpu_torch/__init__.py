@@ -57,14 +57,21 @@ from . import model  # noqa: F401
 from . import executor_manager  # noqa: F401
 from . import feed_forward  # noqa: F401
 from .base import MXNetError
+from .callback import Speedometer
 from .context import Context, cpu, current_context, default_context, gpu
+from .executor import Executor
 from .feed_forward import FeedForward
+from .ndarray import NDArray
+from .symbol import AttrScope, Group, Variable
 
-__all__ = ["Context", "FeedForward", "MXNetError", "base", "callback",
-           "context", "cpu", "current_context", "decoding",
-           "default_context", "executor", "executor_manager",
-           "feed_forward", "gpu", "init", "initializer", "io",
-           "lr_scheduler", "metric", "mod", "model", "models", "module",
-           "nd", "ndarray", "operator", "ops", "optimizer", "parallel",
-           "passes", "random", "rtc", "serving", "sym", "symbol",
-           "telemetry", "utils"]
+__version__ = "0.1.0"
+
+__all__ = ["AttrScope", "Context", "Executor", "FeedForward", "Group",
+           "MXNetError", "NDArray", "Speedometer", "Variable",
+           "__version__", "base", "callback", "context", "cpu",
+           "current_context", "decoding", "default_context", "executor",
+           "executor_manager", "feed_forward", "gpu", "init",
+           "initializer", "io", "lr_scheduler", "metric", "mod", "model",
+           "models", "module", "nd", "ndarray", "operator", "ops",
+           "optimizer", "parallel", "passes", "random", "rtc", "serving",
+           "sym", "symbol", "telemetry", "utils"]

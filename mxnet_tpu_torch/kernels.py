@@ -15,7 +15,10 @@ nothing outside the package's sources is used.
 
 Each build keeps the compiler's output (ptxas's registers, spills and
 shared memory of every kernel, from `-Xptxas -v`) beside its library:
-`build_report(name)` reads it.
+`build_report(name)` reads it. A build that fails leaves the compiler's
+output, and a library that fails to load leaves the loader's error, in
+`_build/<library>.fail.txt` (`_build/gen/<tag>.fail.txt` for a
+generated source), and the raised MXNetError names that file.
 
 Generated sources (the fusion-group kernels of passes/codegen.py) go
 through the same compiler: `build_generated([(tag, text), ...])` writes
@@ -116,30 +119,47 @@ def build_report(name):
         return f.read()
 
 
+def _write_fail(name, out, text):
+    """Keep the log of library `name`'s failed build or load in
+    `<name>.fail.txt` beside its library; returns the file's path."""
+    path = os.path.join(os.path.dirname(out), f"{name}.fail.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
 def _compile(jobs):
-    """Start one nvcc per (source, library, flags) whose library is not
-    built yet, all together, and wait for every one. Raises MXNetError
-    with the compiler's output of each failure. Called with _lock
-    held."""
+    """Start one nvcc per (name, source, library, flags) whose library is
+    not built yet, all together, and wait for every one. Raises
+    MXNetError with the compiler's output of each failure, which is also
+    written to the library's fail file. Called with _lock held."""
+    pending, seen = [], set()
+    for name, src, out, flags in jobs:
+        if out not in seen and not os.path.exists(out):
+            seen.add(out)
+            pending.append((name, src, out, flags))
+    if not pending:
+        return
     nvcc = nvcc_path()
-    started, seen = [], set()
-    for src, out, flags in jobs:
-        if out in seen or os.path.exists(out):
-            continue
-        seen.add(out)
+    started = []
+    for name, src, out, flags in pending:
         os.makedirs(os.path.dirname(out), exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([nvcc, *flags, "-o", tmp, src],
-                                stdout=subprocess.PIPE,
+        cmd = [nvcc, *flags, "-o", tmp, src]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        started.append((src, proc, tmp, out))
+        started.append((name, src, proc, tmp, out, cmd))
     errors = []
-    for src, proc, tmp, out in started:
+    for name, src, proc, tmp, out, cmd in started:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-            errors.append(f"nvcc failed for {os.path.basename(src)}:\n{log}")
+            path = _write_fail(
+                name, out, f"{' '.join(cmd)}\nexit {proc.returncode}\n{log}")
+            errors.append(f"nvcc failed for {os.path.basename(src)} "
+                          f"(log: {path}):\n{log}")
         else:
             with open(report_path(out), "w") as f:
                 f.write(log)
@@ -148,9 +168,21 @@ def _compile(jobs):
         raise MXNetError("\n".join(errors))
 
 
+def _load_library(name, out):
+    """ctypes.CDLL of a built library; a failure leaves the loader's
+    error in the library's fail file and raises MXNetError naming it."""
+    try:
+        return ctypes.CDLL(out)
+    except OSError as e:
+        path = _write_fail(name, out, f"ctypes.CDLL({out!r}) failed:\n{e}\n")
+        raise MXNetError(
+            f"kernel library {name} failed to load (log: {path}): {e}"
+        ) from e
+
+
 def _job(name):
     src, flags = _source(name)
-    return src, library_path(name), flags
+    return name, src, library_path(name), flags
 
 
 def build_all(names=tuple(LIBRARIES)):
@@ -169,7 +201,7 @@ def load(name):
         lib = _libs.get(name)
         if lib is None:
             _compile([_job(name)])
-            lib = _libs[name] = ctypes.CDLL(library_path(name))
+            lib = _libs[name] = _load_library(name, library_path(name))
         return lib
 
 
@@ -204,7 +236,7 @@ def _generated_job(tag, text):
         os.makedirs(GEN_DIR, exist_ok=True)
         with open(src, "w") as f:
             f.write(text)
-    return src, out, GEN_NVCC_FLAGS + ("-I", CSRC_DIR)
+    return tag, src, out, GEN_NVCC_FLAGS + ("-I", CSRC_DIR)
 
 
 def build_generated(items):
@@ -224,5 +256,5 @@ def load_generated(tag, text):
         lib = _libs.get(out)
         if lib is None:
             _compile([_generated_job(tag, text)])
-            lib = _libs[out] = ctypes.CDLL(out)
+            lib = _libs[out] = _load_library(tag, out)
         return lib
