@@ -102,10 +102,14 @@ each of which exits non-zero on failure:
                   kernels against their plain versions at (32, 1000) and
                   (8192, 32000), the three elementwise bodies
                   (csrc/rtc/elementwise.cu) at 2^26 float32 elements bit
-                  for bit, the cold NVRTC compile and the host cost of a
-                  push; and examples/numpy_ops/custom_softmax.py's numpy
-                  CustomOp net through Module.fit on gpu(0) (accuracy >
-                  0.9)
+                  for bit, each timed after a dirty and after a clean L2
+                  flush beside its library call; the launch floor (an
+                  empty kernel through CudaKernel); the head's registers
+                  and spills (none allowed) from NVRTC's log; the cold
+                  NVRTC compile and the host cost of a push against a
+                  torch.mul's; and examples/numpy_ops/custom_softmax.py's
+                  numpy CustomOp net through Module.fit on gpu(0)
+                  (accuracy > 0.9)
 
 The last two lines of standard output are
 one JSON object with every kernel's numbers and one JSON object naming
@@ -188,7 +192,11 @@ RTC_ZERO_GRAD_TOL = 1e-6
 RTC_SOFTMAX_TOL = 1e-6
 RTC_VOCAB_SHAPE = (8192, 32000)        # a vocabulary-sized softmax, 1 GB
 RTC_ELEMS = 1 << 26                    # 256 MB of float32
-RTC_HOST_REPS = 1000
+RTC_HOST_REPS = 1000                   # in RTC_HOST_ROUNDS turns
+RTC_HOST_ROUNDS = 5
+# an empty kernel through rtc.CudaKernel: the least time any launch takes
+RTC_FLOOR_SRC = ('extern "C" __global__ void launch_floor(const float* x, '
+                 'float* out, long long n) {}')
 
 SERVE_CFG = dict(vocab=32000, d_model=1024, n_layers=16, n_heads=16,
                  d_ff=4096, max_len=2048)
@@ -1679,6 +1687,7 @@ def _softmax_rows(torch, rtc_ops, flush):
         idx = label.long()[:, None]
         minus = torch.full_like(idx, -1.0, dtype=torch.float32)
         reps = 20 if r * c < 1 << 24 else 5
+        block, path = rtc_ops.softmax_geometry(c)
         for name, fn, plain, lib, err, bwd in (
                 ("softmax_ce_forward",
                  lambda: rtc_ops.softmax_ce_forward(x),
@@ -1690,16 +1699,25 @@ def _softmax_rows(torch, rtc_ops, flush):
                  lambda: torch.scatter_add(prob, 1, idx, minus), err_b,
                  True)):
             row = {"name": name, "shape": list(shape), "max_abs_err": err,
+                   "geometry": ({"block": rtc_ops.softmax_backward_block(c)}
+                                if bwd else {"block": block, "path": path}),
                    "ms": _time_ms(torch, fn, flush, reps),
+                   "ms_clean_l2": _time_ms(torch, fn, flush, reps,
+                                           clean=True),
                    "plain_ms": _time_ms(torch, plain, flush, reps),
-                   "library_ms": _time_ms(torch, lib, flush, reps)}
+                   "library_ms": _time_ms(torch, lib, flush, reps),
+                   "library_ms_clean_l2": _time_ms(torch, lib, flush, reps,
+                                                   clean=True)}
             row["bound_ms"], row["bound_by"], row["bytes"] = \
                 _softmax_bound(r, c, bwd)
             rows.append(row)
-            log(f"rtc {name:19s} {shape}: err {err!r} ms {row['ms']!r} "
+            log(f"rtc {name:19s} {shape} {row['geometry']}: err {err!r} "
+                f"ms {row['ms']!r} (clean L2 {row['ms_clean_l2']!r}) "
                 f"plain_ms {row['plain_ms']!r} library_ms "
-                f"{row['library_ms']!r} bound_ms {row['bound_ms']!r} "
-                f"({row['bound_by']}, {row['bytes']} B)")
+                f"{row['library_ms']!r} (clean L2 "
+                f"{row['library_ms_clean_l2']!r}) bound_ms "
+                f"{row['bound_ms']!r} ({row['bound_by']}, {row['bytes']} "
+                f"B)")
         del x, label, prob, grad, idx, minus
         torch.cuda.empty_cache()
     return rows
@@ -1728,36 +1746,98 @@ def _elementwise_rows(torch, rtc, rtc_ops, flush):
               f"(max abs err {(out.data - want).abs().max().item()!r})")
         del out, want
         nbytes = 4 * RTC_ELEMS * (len(ins) + 1)
+
+        def push():
+            return k.push(ins, [x.shape])
+
         row = {"name": body, "elements": RTC_ELEMS, "max_abs_err": 0.0,
-               "ms": _time_ms(torch, lambda: k.push(ins, [x.shape]), flush,
-                              10),
+               "ms": _time_ms(torch, push, flush, 10),
+               "ms_clean_l2": _time_ms(torch, push, flush, 10, clean=True),
                "torch_ms": _time_ms(torch, lambda: plain(*ins), flush, 10),
+               "torch_ms_clean_l2": _time_ms(torch, lambda: plain(*ins),
+                                             flush, 10, clean=True),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "bound_by": "bytes", "bytes": nbytes}
         res["rows"].append(row)
         log(f"rtc {body:11s} 2^26 float32: bit-exact, ms {row['ms']!r} "
-            f"torch expression ms {row['torch_ms']!r} bound_ms "
-            f"{row['bound_ms']!r} (bytes, {nbytes} B)")
+            f"(clean L2 {row['ms_clean_l2']!r}) torch expression ms "
+            f"{row['torch_ms']!r} (clean L2 {row['torch_ms_clean_l2']!r}) "
+            f"bound_ms {row['bound_ms']!r} (bytes, {nbytes} B)")
     del x, y
     torch.cuda.empty_cache()
-    # host cost of an enqueue: a small tensor, no synchronize in the loop
     small = torch.randn(4096, device=dev)
     k = rtc_ops.kernel("double_f32")
-    for fn_name, fn in (("push", lambda: k.push([small], [small.shape])),
-                        ("torch_mul", lambda: torch.mul(small, 2.0))):
-        for _ in range(50):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(RTC_HOST_REPS):
-            fn()
-        res[f"{fn_name}_host_us"] = \
-            (time.perf_counter() - t0) / RTC_HOST_REPS * 1e6
-        torch.cuda.synchronize()
+    res.update(_host_us(torch, {
+        "push": lambda: k.push([small], [small.shape]),
+        "torch_mul": lambda: torch.mul(small, 2.0)}))
     log(f"rtc elementwise source: cold NVRTC compile {res['compile_ms']!r} "
         f"ms ({res['cubin_bytes']} B cubin); host us a push "
-        f"{res['push_host_us']!r}, a torch.mul {res['torch_mul_host_us']!r}")
+        f"{res['push_host_us']!r}, a torch.mul {res['torch_mul_host_us']!r} "
+        f"(medians of {RTC_HOST_ROUNDS} turns of "
+        f"{RTC_HOST_REPS // RTC_HOST_ROUNDS}; each turn's "
+        f"{res['push_host_us_turns']} and {res['torch_mul_host_us_turns']})")
     return res
+
+
+def _host_us(torch, fns):
+    """Host µs of one enqueue of each fn (a small tensor, no synchronize
+    in the loop): RTC_HOST_ROUNDS turns of RTC_HOST_REPS / RTC_HOST_ROUNDS
+    calls, the fns in turn within each; the median turn, and every turn.
+    The host is shared, so a single long loop lands other processes'
+    stalls on one side only."""
+    reps = RTC_HOST_REPS // RTC_HOST_ROUNDS
+    for fn in fns.values():
+        for _ in range(50):
+            fn()
+    torch.cuda.synchronize()
+    turns = {name: [] for name in fns}
+    for _ in range(RTC_HOST_ROUNDS):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            turns[name].append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+    out = {}
+    for name, t in turns.items():
+        out[f"{name}_host_us"] = float(np.median(t))
+        out[f"{name}_host_us_turns"] = t
+    return out
+
+
+def _launch_floor(torch, rtc, rtc_ops, flush):
+    """An empty kernel's device time through rtc.CudaKernel and _time_ms,
+    at the (TRAIN_BATCH, 1000) forward's geometry (one CTA a row)."""
+    k = rtc.CudaKernel("launch_floor", RTC_FLOOR_SRC, "launch_floor")
+    small = torch.empty(32, device="cuda")
+    block = rtc_ops.softmax_geometry(1000)[0]
+
+    def push():
+        return k.push_into([small], [small], grid=TRAIN_BATCH, block=block)
+
+    res = {"ms": _time_ms(torch, push, flush),
+           "ms_clean_l2": _time_ms(torch, push, flush, clean=True),
+           "geometry": {"grid": TRAIN_BATCH, "block": block}}
+    log(f"rtc launch floor (an empty kernel, {TRAIN_BATCH} x {block} "
+        f"threads): ms "
+        f"{res['ms']!r} (clean L2 {res['ms_clean_l2']!r})")
+    return res
+
+
+def _rtc_registers(rtc_ops):
+    """Registers and spills of every entry point of both sources, from
+    NVRTC's log (--ptxas-options=-v); fails on a spill."""
+    info = {}
+    for fn in ("softmax_ce_forward", "double_f32"):
+        info.update(_ptxas_info(rtc_ops.kernel(fn).build_log or ""))
+    check(set(rtc_ops._FILE_OF) <= set(info),
+          f"ptxas report lacks {set(rtc_ops._FILE_OF) - set(info)}")
+    spills = {fn: i for fn, i in info.items()
+              if i["spill_stores"] or i["spill_loads"]}
+    check(not spills, f"rtc kernels spill: {spills}")
+    log("rtc registers (no spills): " + ", ".join(
+        f"{fn} {i['registers']}" for fn, i in sorted(info.items())))
+    return info
 
 
 def _register_numpy_softmax(mx):
@@ -2009,14 +2089,20 @@ def phase_rtc(torch, mx):
     res["softmax_compile_ms"] = fwd_k.compile_ms
     res["softmax_rows"] = _softmax_rows(torch, rtc_ops, flush)
     res["elementwise"] = _elementwise_rows(torch, rtc, rtc_ops, flush)
+    res["push_host_us"] = res["elementwise"]["push_host_us"]
+    res["torch_mul_host_us"] = res["elementwise"]["torch_mul_host_us"]
+    res["launch_floor"] = _launch_floor(torch, rtc, rtc_ops, flush)
+    res["registers"] = _rtc_registers(rtc_ops)
     del flush
     torch.cuda.empty_cache()
-    # (3) each source compiled (or found on disk) once, the rest hits
+    # (3) each source compiled (or found on disk) once, the rest hits: the
+    # two repo sources (5 kernels) and the launch floor's (1 kernel)
     stats = rtc.stats()
     res["rtc_stats"] = stats
-    check(stats["compiles"] <= 2 and stats["compiles"]
-          + stats["cache_hits"] == 5,
-          f"rtc compiles and cache hits {stats} (2 sources, 5 kernels)")
+    check(stats["compiles"] <= 3 and stats["compiles"]
+          + stats["cache_hits"] == 6,
+          f"rtc compiles and cache hits {stats} (3 sources: 2 of the "
+          "repo's, 5 kernels, and the launch floor's, 1 kernel)")
     log(f"rtc: softmax source cold NVRTC compile "
         f"{res['softmax_compile_ms']!r} ms; process stats {stats}")
 
@@ -2028,11 +2114,14 @@ def phase_rtc(torch, mx):
 
 def _rtc_line(rtc_res):
     """B7: the two head kernels launched through rtc.CudaKernel on phase
-    10's path, at the training shape."""
+    10's path, at the training shape, with their times at the
+    vocabulary size (RTC_VOCAB_SHAPE) beside."""
     out = []
     for name in ("softmax_ce_forward", "softmax_ce_backward"):
         r = next(x for x in rtc_res["softmax_rows"] if x["name"] == name
                  and x["shape"] == [TRAIN_BATCH, 1000])
+        v = next(x for x in rtc_res["softmax_rows"] if x["name"] == name
+                 and x["shape"] == list(RTC_VOCAB_SHAPE))
         out.append({
             "name": f"rtc_{name}", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/rtc/softmax_ce.cu",
@@ -2043,7 +2132,9 @@ def _rtc_line(rtc_res):
                                if x["name"] == name),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"], "ms_vocab": v["ms"],
+            "bound_ms_vocab": v["bound_ms"],
+            "library_ms_vocab": v["library_ms"]})
     return out
 
 

@@ -173,7 +173,7 @@ def _kernel_lib():
 
 def bind_library(lib):
     """Declare the C interface of a built csrc/paged_attention.cu on its
-    ctypes handle (tools/bench_paged_attention.py binds other builds of
+    ctypes handle (tools/bench_kernels.py paged binds other builds of
     the source the same way) and check its chunk size."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     failed = ctypes.POINTER(ctypes.c_int)

@@ -16,8 +16,24 @@ CUDA sources (compiled by NVRTC at the first push, see rtc.py):
                            softmax_ce_backward (softmax - onehot(label))
 
 `kernel(fn_name)` is the process's CudaKernel of an entry point (built
-once). The plain versions are what the CPU tests hold the JAX package's
-bodies to and what chip_smoke.py holds the kernels to on the card.
+once; the elementwise ones with `items_per_thread=ELEMENTWISE_ITEMS`, the
+elements a thread moves in each pass of their grid-stride loop). The plain versions are what the CPU
+tests hold the JAX package's bodies to and what chip_smoke.py holds the
+kernels to on the card.
+
+The head's geometry comes from the row length `cols` alone
+(`softmax_geometry`, `softmax_backward_block`); each row takes one CTA.
+A row of up to 4 * SOFTMAX_MAX_BLOCK floats takes the next power of two
+of ceil(cols / 4) threads (at least a warp), one float4 a thread. A
+longer row of a multiple of 4 floats: a thread holds up to
+4 * SOFTMAX_VEC floats in registers, so it needs ceil(cols / 32)
+threads, the next power of two of them; past SOFTMAX_MAX_BLOCK such
+threads (32,768 floats), and for any longer row of another length (it
+loads scalars), the row streams twice through a 1024-thread CTA (the
+online path). Rows of a tensor whose start is not 16-byte aligned load
+scalars whatever their length. A one-warp CTA reduces with
+shuffles only. The backward takes one CTA a row, enough threads (256 to
+1024) for one pass of BWD_UNROLL float4s each.
 
 `rtc_softmax_ce` (registered when this module is imported) is a loss
 head in place of SoftmaxOutput, as examples/numpy_ops/custom_softmax.py
@@ -45,7 +61,11 @@ _FILE_OF = {f"{body}_{kind}": "elementwise"
             for kind in ("f32", "bf16", "i32")}
 _FILE_OF.update(softmax_ce_forward="softmax_ce",
                 softmax_ce_backward="softmax_ce")
-SOFTMAX_BLOCK = 256
+EW_UNROLL = 4                 # quads a thread moves a pass (EW_UNROLL)
+ELEMENTWISE_ITEMS = 4 * EW_UNROLL
+SOFTMAX_VEC = 8               # float4s a forward thread holds (SOFTMAX_VEC)
+SOFTMAX_MAX_BLOCK = 1024      # threads of a forward CTA, at most
+BWD_UNROLL = 8                # float4s in flight a backward thread
 
 _lock = threading.Lock()
 _kernels = {}
@@ -58,13 +78,41 @@ def source_path(fn_name):
 
 def kernel(fn_name):
     """The CudaKernel of entry point `fn_name`, built once a process."""
+    k = _kernels.get(fn_name)
+    if k is not None:
+        return k
     with _lock:
         k = _kernels.get(fn_name)
         if k is None:
             with open(source_path(fn_name)) as f:
-                k = _kernels[fn_name] = CudaKernel(fn_name, f.read(),
-                                                   fn_name)
+                k = _kernels[fn_name] = CudaKernel(
+                    fn_name, f.read(), fn_name,
+                    items_per_thread=ELEMENTWISE_ITEMS
+                    if _FILE_OF[fn_name] == "elementwise" else 1)
         return k
+
+
+def _pow2_at_least(v):
+    return 1 << max(0, int(v) - 1).bit_length()
+
+
+def softmax_geometry(cols):
+    """(block, path) of the forward over rows of `cols` floats; path is
+    "registers" (each row read once) or "online" (twice)."""
+    quads = -(-int(cols) // 4)
+    if quads <= SOFTMAX_MAX_BLOCK:          # one float4 a thread
+        return max(_pow2_at_least(quads), 32), "registers"
+    threads = -(-int(cols) // (4 * SOFTMAX_VEC))
+    if cols % 4 == 0 and threads <= SOFTMAX_MAX_BLOCK:
+        return _pow2_at_least(threads), "registers"   # SOFTMAX_VEC float4s
+    return SOFTMAX_MAX_BLOCK, "online"
+
+
+def softmax_backward_block(cols):
+    """Threads of the backward's CTA over rows of `cols` floats: enough
+    for one pass of BWD_UNROLL float4s a thread, from 256 up to 1024."""
+    return min(max(_pow2_at_least(-(-int(cols) // (4 * BWD_UNROLL))), 256),
+               1024)
 
 
 # ------------------------------------------------------- plain versions
@@ -100,19 +148,23 @@ def softmax_ce_forward(x):
     """prob of (rows, cols) contiguous float32 `x`."""
     if x.device.type == "cpu":
         return softmax_plain(x)
-    (prob,) = kernel("softmax_ce_forward").push(
-        [x], [x.shape], grid=x.shape[0], block=SOFTMAX_BLOCK)
-    return prob.data
+    rows, cols = x.shape
+    block, _ = softmax_geometry(cols)
+    prob = torch.empty_like(x)
+    kernel("softmax_ce_forward").push_into([x], [prob], grid=rows,
+                                           block=block)
+    return prob
 
 
 def softmax_ce_backward(prob, label):
     """grad of the data from `prob` (rows, cols) and `label` (rows,)."""
     if prob.device.type == "cpu":
         return softmax_ce_backward_plain(prob, label)
-    (grad,) = kernel("softmax_ce_backward").push(
-        [prob, label], [prob.shape], grid=prob.shape[0],
-        block=SOFTMAX_BLOCK)
-    return grad.data
+    grad = torch.empty_like(prob)
+    kernel("softmax_ce_backward").push_into(
+        [prob, label], [grad], grid=prob.shape[0],
+        block=softmax_backward_block(prob.shape[1]))
+    return grad
 
 
 class SoftmaxCE(_operator.CustomOp):

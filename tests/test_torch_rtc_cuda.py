@@ -8,10 +8,15 @@ only the port installed:
 
 Tolerances: the elementwise kernels agree bit for bit (no FMA
 contraction; bf16 rounds to nearest even and int32 truncates, as torch's
-casts); the softmax backward agrees bit for bit given the same prob; the
-softmax forward agrees within 1e-6 absolute (its sums run in another
-order; every value is at most 1).
+casts), on the 16-byte path, its scalar tail and misaligned views; the
+softmax backward agrees bit for bit given the same prob; the softmax
+forward agrees within 1e-6 absolute on every path (its sums run in
+another order, and the online path rescales its running sums; every
+value is at most 1), at each row length where the head's geometry
+changes (one warp, one float4 a thread, SOFTMAX_VEC of them, the online
+path) and at blocks a push may give the vocabulary-sized row.
 """
+import re
 import threading
 
 import numpy as np
@@ -97,6 +102,137 @@ def test_softmax_misaligned_rows_take_the_scalar_path(dev):
     prob = rtc_ops.softmax_ce_forward(x)
     assert (prob - rtc_ops.softmax_plain(x)).abs().max().item() \
         <= SOFTMAX_TOL
+
+
+def _head_case(rows, cols, seed, dev, x=None):
+    """Forward and backward of the head on (rows, cols) against the plain
+    versions; labels include -1 (subtracts nothing), the last column and
+    a truncated fraction."""
+    if x is None:
+        x = _randn((rows, cols), seed, scale=5.0)
+    prob = rtc_ops.softmax_ce_forward(x)
+    torch.cuda.synchronize()
+    err = (prob - rtc_ops.softmax_plain(x)).abs().max().item()
+    assert err <= SOFTMAX_TOL, (rows, cols, err)
+    torch.testing.assert_close(prob.sum(1), torch.ones(rows, device=dev))
+    g = torch.Generator().manual_seed(seed)
+    label = torch.randint(0, cols, (rows,), generator=g).float()
+    label[0] = cols - 1
+    if rows > 1:
+        label[1] = -1.0
+    if rows > 2:
+        label[2] = min(cols - 1, 2) + 0.75
+    label = label.to(dev)
+    grad = rtc_ops.softmax_ce_backward(prob, label)
+    torch.cuda.synchronize()
+    assert torch.equal(grad, rtc_ops.softmax_ce_backward_plain(prob, label))
+    return prob
+
+
+# each boundary of softmax_geometry, and one past it
+@pytest.mark.parametrize("cols", [1, 31, 32, 33, 128, 129, 1000, 1024,
+                                  1025, 4096, 4097, 4100, 32000, 32768,
+                                  32769, 32772, 65536, 65537, 131072,
+                                  131073, 600_001])
+def test_softmax_paths_against_plain(dev, cols):
+    rows = 5 if cols < 1 << 16 else 3
+    _head_case(rows, cols, cols, dev)
+
+
+def test_softmax_vocabulary_shape(dev):
+    _head_case(8192, 32000, 7, dev)
+
+
+# blocks at the vocabulary width: registers (1024) and online (the rest,
+# 992 a block of 31 warps)
+@pytest.mark.parametrize("block", [1024, 992, 512, 256, 128, 96, 64, 32])
+def test_softmax_any_geometry_at_vocabulary_width(dev, block):
+    x = _randn((16, 32000), block, scale=5.0)
+    prob = torch.empty_like(x)
+    k = rtc_ops.kernel("softmax_ce_forward")
+    before = k.launches
+    k.push_into([x], [prob], grid=16, block=block)
+    torch.cuda.synchronize()
+    assert (prob - rtc_ops.softmax_plain(x)).abs().max().item() \
+        <= SOFTMAX_TOL
+    assert k.launches == before + 1
+
+
+def test_softmax_online_path_rescales_a_rising_row(dev):
+    # a rising row makes the running max grow at every chunk
+    cols = 300_000
+    x = torch.linspace(-30.0, 30.0, cols, device=dev).repeat(2, 1)
+    x[1] = x[1].flip(0)
+    assert rtc_ops.softmax_geometry(cols)[1] == "online"
+    _head_case(2, cols, 3, dev, x=x)
+
+
+@pytest.mark.parametrize("cols", [32001, 70001, 131075])
+def test_softmax_misaligned_long_rows(dev, cols):
+    # rows of odd length start off 16 bytes: scalar loads, on the online
+    # path
+    _head_case(3, cols, cols, dev)
+    flat = _randn((1 + 2 * cols,), cols, scale=5.0)
+    x = flat[1:].view(2, cols)
+    _head_case(2, cols, cols, dev, x=x)
+
+
+def test_head_kernels_build_without_spills(dev):
+    k = rtc_ops.kernel("softmax_ce_forward")
+    k.compile()
+    log = k.build_log
+    for fn in ("softmax_ce_forward", "softmax_ce_backward"):
+        part = log[log.index(f"entry function '{fn}'"):]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      part)
+        regs = int(re.search(r"Used (\d+) registers", part).group(1))
+        assert m.groups() == ("0", "0") and regs <= 64, (fn, part[:400])
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, (1 << 20) + 3])
+@pytest.mark.parametrize("kind", sorted(CASTS))
+@pytest.mark.parametrize("body", sorted(PLAIN))
+def test_elementwise_tails_and_misaligned_views(dev, body, kind, n):
+    plain, n_in = PLAIN[body]
+    k = rtc_ops.kernel(f"{body}_{kind}")
+    ins = [_randn((n,), 10 + seed) for seed in range(n_in)]
+    (out,) = k.push(ins, out_shapes=[(n,)], out_dtypes=[CASTS[kind]])
+    torch.cuda.synchronize()
+    assert torch.equal(out.data, plain(*ins).to(CASTS[kind]))
+    # inputs 4 bytes off 16, then an output one element off its quad
+    views = [_randn((n + 1,), 20 + seed)[1:] for seed in range(n_in)]
+    assert views[0].data_ptr() % 16 == 4
+    base = torch.zeros(n + 1, dtype=CASTS[kind], device=dev)
+    k.push_into(views, [base[1:]])
+    assert torch.equal(base[1:], plain(*views).to(CASTS[kind]))
+    out = torch.zeros(n, dtype=CASTS[kind], device=dev)
+    k.push_into(ins, [out], grid=3, block=64)      # any grid covers n
+    assert torch.equal(out, plain(*ins).to(CASTS[kind]))
+
+
+def test_pushes_from_many_threads(dev):
+    x = _randn((1 << 16,), 6)
+    k = rtc_ops.kernel("scale_shift_f32")
+    want = rtc_ops.scale_shift_plain(x)
+    before = k.launches
+    errors = []
+
+    def run():
+        try:
+            for _ in range(50):
+                (y,) = k.push([x], [x.shape])
+                torch.cuda.synchronize()
+                assert torch.equal(y.data, want)
+        except Exception as e:       # reported by the assertion below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run) for _ in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    assert not errors, errors
+    assert k.launches == before + 200
 
 
 def test_compile_once_and_cache_hits(dev):
