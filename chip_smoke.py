@@ -10,7 +10,9 @@ each of which exits non-zero on failure:
   1. environment  card name and power limit, torch/CUDA versions, TF32
                   off, the CUDA kernels built from csrc/ (one nvcc per
                   library, started together; the flash forward is three
-                  libraries, one a dtype)
+                  libraries, one a dtype), and with them phase 5's three
+                  generated fusion sources (found by binding its nets on
+                  the CPU), so that phase 5's binds compile nothing
   2. kernels      each paged-attention kernel against its plain PyTorch
                   version at the serving shapes (B=24 rows, H=16, D=64,
                   P=16, N=1024 pages, Bp in {1, 8, 128}) over float32,
@@ -56,7 +58,9 @@ each of which exits non-zero on failure:
   7. train kernels each of the bind's four group kernels (block35,
                   block17, block8, b8_final) against its plain version at
                   the training shapes in float32 and bf16, with its time,
-                  bound, plain time and library time
+                  bound, plain time and library time (b8_final's kernel
+                  and torch.add also in turns after a clean L2 flush,
+                  each time's spread beside it)
   8. attention    the long-context path, parallel.attention(impl="flash"):
                   forward and backward at the transformer's shape (8,
                   2048, 8, 64) float32 causal against autograd through
@@ -177,14 +181,18 @@ each of which exits non-zero on failure:
                   steps 1 and 10, the fusion group's B1 launches, one
                   MultiBoxTarget's device ms); get_ssd_detect with the
                   trained weights at batch 32: output (32, 117,976, 6),
-                  the forward's ms (median of 3), V1's ms, launches,
-                  bound and mask scratch, the kept rows an image; every
+                  the forward's ms (median of 3), V1's ms, launches (one
+                  group of every image), bound (the pairs of a kept box
+                  and a later candidate of its class, and of every class),
+                  scratch (under 256 MB), its segments, the kept rows an
+                  image; every
                   keep bit of that counted call held exactly against
                   greedy NMS's defining property, and V1 against
                   nms_plain on image 0's first 4,096 and 16,384
                   candidates (identical keep bits); then Faster R-CNN's
                   Proposal at its defaults on a 600x1000 image's conv5
-                  map (28,728 anchors; V1 against nms_plain) and
+                  map (28,728 anchors; V1 against nms_plain, its ms
+                  and bound) and
                   ROIPooling of its 300 rois to 7x7 over a (1, 512, 38,
                   63) map, card and CPU bit-identical
 
@@ -226,6 +234,11 @@ TOL = {"float32": 1e-4, "bf16": 2e-3, "int8": 1e-4}
 # with atomics in an order that changes from run to run, so each tensor
 # agrees to this share of its largest magnitude
 TRAIN_PARITY_RTOL = 1e-3
+# phase 5's template nets: each argument (CODEGEN_SIDE, CODEGEN_SIDE)
+CODEGEN_SIDE = 4096
+# a kernel against its library call after a clean flush: this many
+# rounds of turns forward and back (B1 at b8_final's shape)
+TURN_ROUNDS = 3
 
 TRAIN_BATCH = 32
 TRAIN_STEPS = 10
@@ -360,6 +373,11 @@ NMS_CHECK_ROWS = 32768
 # overlap test alone (csrc/nms.cu: 4 max/min, 2 subtractions, 2 clamps,
 # 1 product, 1 test): V1's bound
 NMS_PAIR_OPS = 10
+# V1's scratch at the detection must stay under this (no K x K mask)
+NMS_SCRATCH_LIMIT = 256 << 20
+# where phase 13 saves the detection's and Proposal's V1 arguments when
+# set (tools/bench_kernels.py nms sets it, then reads them)
+NMS_SAVE = None
 # Faster R-CNN's RPN at the reference's defaults (Proposal's own: pre
 # 6000, post 300, threshold 0.7, stride 16, scales 4-32, ratios
 # 0.5/1/2) on a 600x1000 image's VGG-16 conv5 map (38x63, 512 channels)
@@ -403,12 +421,23 @@ def phase_environment(torch):
     torch.backends.cudnn.allow_tf32 = False
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "torch.backends.cuda.matmul.allow_tf32 must be False")
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import kernels
 
     examples = _start_examples()
+    found = {}
+
+    def sources():
+        t0 = time.perf_counter()
+        found["items"] = _template_sources(mx)
+        found["s"] = time.perf_counter() - t0
+        return found["items"]
+
     try:
-        secs = kernels.build_all()
-        log(f"phase 1 ok: kernels {list(kernels.LIBRARIES)} built in "
+        secs = kernels.build_all(generated=sources)
+        log(f"phase 1 ok: kernels {list(kernels.LIBRARIES)} and phase 5's "
+            f"{len(found['items'])} generated sources (found by CPU binds "
+            f"in {found['s']!r} s while the libraries compiled) built in "
             f"{secs!r} s")
         examples_res = _finish_examples(examples)
     finally:
@@ -1017,6 +1046,27 @@ def _template_nets(mx):
     return {"elementwise": elem, "scale_bias_act": sba, "reduction": red}
 
 
+def _template_sources(mx):
+    """The generated sources phase 5's binds compile, as (tag, text):
+    each template net bound on the CPU at phase 5's shape gives its
+    group's spec and signature, and the codegen emits the same text a
+    card bind does (its library is named by a digest of the text)."""
+    from mxnet_tpu_torch.passes import codegen
+
+    out = []
+    for net in _template_nets(mx).values():
+        exe = net.simple_bind(mx.cpu(), **{
+            n: (CODEGEN_SIDE, CODEGEN_SIDE) for n in net.list_arguments()})
+        for group, _ in exe._codegen_plan.fused.values():
+            status, emitted = codegen._prepare(
+                group.spec, list(group.in_avals), group.digest,
+                group.template)
+            if status == "emit":
+                out.append((f"fusion_{group.template}_{group.digest}",
+                            emitted[0]))
+    return out
+
+
 def _group_bound(torch, group, ins):
     """Least time for one launch: each input read once and the output
     written once over the HBM rate, or one float32 operation per op of
@@ -1060,6 +1110,18 @@ def _bf16_twins(torch, passes, groups):
          for g in groups], torch.device("cuda"))
 
 
+def _turns_clean(torch, fns, flush, rounds=TURN_ROUNDS):
+    """Each fn's `_time_ms` after a clean (read) flush, in turns forward
+    and back (a, b, b, a, ...): its times, their mean and spread."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for _ in range(rounds):
+        for n in names + names[::-1]:
+            times[n].append(_time_ms(torch, fns[n], flush, clean=True))
+    return {n: {"ms": t, "mean": sum(t) / len(t), "min": min(t),
+                "max": max(t)} for n, t in times.items()}
+
+
 def _kernel_row(torch, passes, name, group, bf, flush, seed):
     """One group's kernel against its plain version in float32 and, as
     `bf`, bf16 at its bind shapes, with its times and bound."""
@@ -1088,6 +1150,12 @@ def _kernel_row(torch, passes, name, group, bf, flush, seed):
     row["library_ms"] = None if lib is None else _time_ms(torch, lib, flush)
     if lib is not None:
         row["library_max_abs_err"] = (lib() - got).abs().max().item()
+        row["turns_clean_l2"] = _turns_clean(torch, {
+            "kernel": lambda: group.kernel(*ins, out_shape=group.out_shape,
+                                           count=False),
+            "library": lib}, flush)
+        log(f"codegen {name}: kernel against its library call after a "
+            f"clean flush, in turns: {json.dumps(row['turns_clean_l2'])}")
     row["bound_ms"], row["bound_by"], row["bytes"] = _group_bound(
         torch, group, ins)
     row["bf16_bound_ms"] = _group_bound(torch, bf, ins_bf)[0]
@@ -1101,7 +1169,7 @@ def _kernel_row(torch, passes, name, group, bf, flush, seed):
     return row
 
 
-def phase_codegen(torch, mx, side=4096):
+def phase_codegen(torch, mx, side=CODEGEN_SIDE):
     """The Executor path of the template nets, then their kernels."""
     from mxnet_tpu_torch import passes
     from mxnet_tpu_torch.symbol import _topo
@@ -3097,17 +3165,49 @@ def _ssd_step_card_vs_cpu(torch, mx, net, ctx, dev):
     return res
 
 
-def _nms_bound(torch, keep, valid):
-    """V1's bound for one call from its result: each later valid box
-    tested against each kept box (NMS_PAIR_OPS a pair on float32 SIMT),
-    or each candidate's box, class, valid flag and keep byte moved once."""
+def _nms_bound(torch, keep, valid, cls, force):
+    """V1's bound for one call from its result: each valid candidate
+    tested against each kept box before it of its class (of any class
+    under force_suppress), NMS_PAIR_OPS a pair on float32 SIMT, or each
+    candidate's box, class, valid flag and keep byte moved once.
+    `bound_ms_all_pairs` counts the kept boxes of every class."""
     n = valid.sum(1, keepdim=True)
     idx = torch.arange(keep.shape[1], device=keep.device)[None, :]
-    pairs = float(torch.where(keep, n - 1 - idx, torch.zeros_like(idx)).sum())
-    op_s = NMS_PAIR_OPS * pairs / FP32_FLOPS_PER_S
+    pairs_all = float(torch.where(keep, n - 1 - idx,
+                                  torch.zeros_like(idx)).sum())
+    pairs = pairs_all
+    if not force:
+        pairs = 0.0
+        for c in torch.unique(cls[valid]).tolist():
+            member = valid & (cls == c)
+            kept = (keep & member).long()
+            pairs += float(((kept.cumsum(1) - kept) * member).sum())
     byte_s = keep.numel() * (16 + 4 + 1 + 1) / HBM_BYTES_PER_S
-    return {"bound_ms": max(op_s, byte_s) * 1e3, "pairs": pairs,
-            "bound_by": "operations" if op_s >= byte_s else "bytes"}
+    out = {}
+    for key, p in (("", pairs), ("_all_pairs", pairs_all)):
+        op_s = NMS_PAIR_OPS * p / FP32_FLOPS_PER_S
+        out.update({f"bound_ms{key}": max(op_s, byte_s) * 1e3,
+                    f"pairs{key}": p,
+                    f"bound_by{key}": "operations" if op_s >= byte_s
+                    else "bytes"})
+    return out
+
+
+def _nms_segments(torch, keep, valid, cls, force):
+    """The kernel's segments in one call: how many hold a member, and the
+    most members and kept boxes one holds."""
+    if force:
+        members, kept = valid.sum(1), keep.sum(1)
+    else:
+        lo = int(cls.min())
+        span = int(cls.max()) - lo + 1
+        slot = (cls - lo) + span * torch.arange(
+            cls.shape[0], device=cls.device)[:, None]
+        size = cls.shape[0] * span
+        members = torch.bincount(slot[valid], minlength=size)
+        kept = torch.bincount(slot[keep], minlength=size)
+    return {"segments": int((members > 0).sum()),
+            "most_members": int(members.max()), "most_kept": int(kept.max())}
 
 
 def _nms_greedy_check(torch, tnms, boxes, cls, valid, thresh, force, keep):
@@ -3157,8 +3257,13 @@ def _ssd_detection(torch, mx, ctx, dev, trained, x):
         torch.cuda.synchronize()
     res["nms_launches"] = tnms.nms.launches
     res["nms_groups"] = tnms.nms.groups
-    res["mask_peak_bytes"] = tnms.nms.peak_scratch_bytes
+    res["nms_scratch_peak_bytes"] = tnms.nms.peak_scratch_bytes
     check(res["nms_launches"] > 0, "detection launched no NMS kernel")
+    check(res["nms_groups"] == 1, f"V1 took the detection's images in "
+          f"{res['nms_groups']} groups, not one")
+    check(res["nms_scratch_peak_bytes"] < NMS_SCRATCH_LIMIT,
+          f"V1's scratch {res['nms_scratch_peak_bytes']} B is not under "
+          f"{NMS_SCRATCH_LIMIT} B")
     check(tuple(out.shape) == (x.shape[0], SSD_ANCHORS, 6),
           f"detection output {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "non-finite detection output")
@@ -3176,13 +3281,22 @@ def _ssd_detection(torch, mx, ctx, dev, trained, x):
     res["forward_ms"] = float(np.median(times))
     boxes, cls, valid, thresh, force = rec.args
     keep = rec.keep
+    if NMS_SAVE:
+        os.makedirs(os.path.dirname(os.path.abspath(NMS_SAVE)),
+                    exist_ok=True)
+        torch.save({"detection": [a.cpu() if torch.is_tensor(a) else a
+                                  for a in rec.args]}, NMS_SAVE)
     res["valid_candidates"] = valid.sum(1).tolist()
     res["nms_ms"] = _event_ms(torch, lambda: tnms.nms(*rec.args),
                               reps=SSD_FORWARD_REPS, warm=False)
-    bound = _nms_bound(torch, keep, valid)
+    bound = _nms_bound(torch, keep, valid, cls, force)
     res.update({"nms_bound_ms": bound["bound_ms"],
                 "nms_bound_by": bound["bound_by"],
-                "nms_pairs": bound["pairs"]})
+                "nms_pairs": bound["pairs"],
+                "nms_bound_ms_all_pairs": bound["bound_ms_all_pairs"],
+                "nms_pairs_all": bound["pairs_all_pairs"],
+                "nms_segments": _nms_segments(torch, keep, valid, cls,
+                                              force)})
     # every keep bit of the counted call, at the detection's full shape
     t0 = time.perf_counter()
     res["nms_greedy_check"] = _nms_greedy_check(torch, tnms, *rec.args, keep)
@@ -3206,7 +3320,8 @@ def _ssd_detection(torch, mx, ctx, dev, trained, x):
     res["nms_ms_small"] = _event_ms(torch, lambda: tnms.nms(*a))
     res["nms_plain_ms_small"] = _event_ms(torch, lambda: tnms.nms_plain(*a),
                                          reps=1)
-    res["nms_bound_small"] = _nms_bound(torch, tnms.nms(*a), a[2])
+    res["nms_bound_small"] = _nms_bound(torch, tnms.nms(*a), a[2], a[1],
+                                        force)
     del det, out
     return res
 
@@ -3236,8 +3351,17 @@ def _rpn(torch, dev):
     plain = tnms.nms_plain(*rec.args)
     diff = int((plain != rec.keep).sum())
     check(diff == 0, f"Proposal: V1 and nms_plain differ in {diff} bits")
+    _, pcls, pvalid, _, pforce = rec.args
+    if NMS_SAVE:
+        saved = torch.load(NMS_SAVE)
+        saved["proposal"] = [a.cpu() if torch.is_tensor(a) else a
+                             for a in rec.args]
+        torch.save(saved, NMS_SAVE)
     res.update({"anchors": h * w * k, "kept": int(rec.keep.sum()),
                 "nms_differing_bits": diff,
+                "nms_ms": _event_ms(torch, lambda: tnms.nms(*rec.args)),
+                "nms_bound": _nms_bound(torch, rec.keep, pvalid, pcls,
+                                        pforce),
                 "proposal_ms": _event_ms(torch, lambda: prop.fn(
                     cls_prob, bbox, im_info, **params))})
     data = torch.randn((1, RPN_CHANNELS, h, w), generator=gen, device=dev)
@@ -3382,28 +3506,36 @@ def _vision_line(vision):
     """V1: `ms`, `plain_ms` and `bound_ms` at one shape, image 0's first
     4,096 candidates (the plain version's K-step loop over a dense IoU
     cannot run at full K), and the kernel's time and bound at the
-    detection's shape (batch 32, every anchor) under `*_detection`.
-    `launches` counts both kernels (mask and scan) of each image group
-    on phase 13's detection path, `groups` the groups. Torch has no NMS
-    op, so there is no library call."""
-    d = vision["detection"]
+    detection's shape (batch 32, every anchor) under `*_detection` and at
+    Proposal's under `*_proposal`. Each bound counts the pairs of a kept
+    box and a later valid candidate of its class; `*_all_pairs` counts
+    those of every class. `launches` counts both kernels (prepare and
+    segments) of phase 13's detection call, `groups` its launch groups
+    (one: every image). Torch has no NMS op, so there is no library
+    call."""
+    d, r = vision["detection"], vision["rpn"]
+    small = d["nms_bound_small"]
     return [{
         "name": "nms", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/nms.cu",
         "replaces": "mxnet_tpu/ops/vision.py:416",
         "launches": d["nms_launches"], "groups": d["nms_groups"],
         "max_abs_err": float(max(
-            [r["differing_bits"] for r in d["nms_vs_plain"].values()]
+            [x["differing_bits"] for x in d["nms_vs_plain"].values()]
             + [d["nms_greedy_check"]["differing_bits"],
-               vision["rpn"]["nms_differing_bits"]])),
+               r["nms_differing_bits"]])),
         "shape": [1, NMS_CHECK_K[0]],
         "ms": d["nms_ms_small"], "plain_ms": d["nms_plain_ms_small"],
-        "bound_ms": d["nms_bound_small"]["bound_ms"],
-        "bound_by": d["nms_bound_small"]["bound_by"],
+        "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
+        "bound_ms_all_pairs": small["bound_ms_all_pairs"],
         "library_ms": None,
         "shape_detection": [SSD_BATCH, SSD_ANCHORS],
         "ms_detection": d["nms_ms"], "bound_ms_detection": d["nms_bound_ms"],
         "bound_by_detection": d["nms_bound_by"],
+        "bound_ms_all_pairs_detection": d["nms_bound_ms_all_pairs"],
+        "scratch_peak_bytes": d["nms_scratch_peak_bytes"],
+        "ms_proposal": r["nms_ms"],
+        "bound_ms_proposal": r["nms_bound"]["bound_ms"],
         "library_note": "torch has no NMS op"}]
 
 
@@ -3487,6 +3619,12 @@ def _codegen_line(template_rows, train_rows, train_launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if "turns_clean_l2" in r:
+            t = r["turns_clean_l2"]
+            out[-1].update({"ms_clean_l2": t["kernel"]["mean"],
+                            "library_ms_clean_l2": t["library"]["mean"],
+                            "turns_clean_l2": {n: [v["min"], v["max"]]
+                                               for n, v in t.items()}})
     return out
 
 
@@ -3529,10 +3667,11 @@ def main():
         ("jax.", "mxnet_tpu.")) for m in sys.modules),
         "the port imported jax or mxnet_tpu")
 
+    t = time.perf_counter()
     card, build_s, examples = phase_environment(torch)
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "phase_s": {}}
+              "phase_s": {"environment": time.perf_counter() - t}}
 
     def run(key, fn, *a, **kw):
         t = time.perf_counter()
@@ -3602,7 +3741,10 @@ def main():
            "nms_groups": det["nms_groups"],
            "nms_greedy_check": det["nms_greedy_check"],
            "kept_rows": det["kept_rows"],
-           "mask_peak_bytes": det["mask_peak_bytes"],
+           "nms_scratch_peak_bytes": det["nms_scratch_peak_bytes"],
+           "nms_segments": det["nms_segments"],
+           "nms_bound_ms": det["nms_bound_ms"],
+           "nms_bound_ms_all_pairs": det["nms_bound_ms_all_pairs"],
            "rpn": vision["rpn"], "phase_s": report["phase_s"]["vision"],
            "parts_s": vision["parts_s"],
            "card": card}))

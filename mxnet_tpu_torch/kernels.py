@@ -137,13 +137,19 @@ def _compile(jobs):
     not built yet, all together, and wait for every one. Raises
     MXNetError with the compiler's output of each failure, which is also
     written to the library's fail file. Called with _lock held."""
+    _wait(_start(jobs))
+
+
+def _start(jobs):
+    """Start the nvcc of each job whose library is missing; returns what
+    `_wait` takes."""
     pending, seen = [], set()
     for name, src, out, flags in jobs:
         if out not in seen and not os.path.exists(out):
             seen.add(out)
             pending.append((name, src, out, flags))
     if not pending:
-        return
+        return []
     nvcc = nvcc_path()
     started = []
     for name, src, out, flags in pending:
@@ -153,6 +159,12 @@ def _compile(jobs):
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started.append((name, src, proc, tmp, out, cmd))
+    return started
+
+
+def _wait(started):
+    """Wait for every started nvcc; keep each report, or raise
+    MXNetError with the output of each failure."""
     errors = []
     for name, src, proc, tmp, out, cmd in started:
         log, _ = proc.communicate()
@@ -188,13 +200,26 @@ def _job(name):
     return name, src, library_path(name), flags
 
 
-def build_all(names=tuple(LIBRARIES)):
+def build_all(names=tuple(LIBRARIES), generated=None):
     """Compile every named library that is not built yet, one nvcc
-    process per library, all started together. Returns the wall
-    seconds spent."""
+    process per library, all running together; with `generated`, a
+    function returning (tag, text) pairs of generated sources, called
+    once the libraries' compilers are running (so that finding the texts
+    overlaps them), each text whose library is missing compiles beside
+    them. Returns the wall seconds spent."""
     t0 = time.perf_counter()
     with _lock:
-        _compile([_job(n) for n in names])
+        started = _start([_job(n) for n in names])
+        try:
+            items = generated() if generated else ()
+            started += _start([_generated_job(tag, text)
+                               for tag, text in items])
+        except BaseException:
+            for proc in (x[2] for x in started):
+                proc.kill()
+                proc.communicate()
+            raise
+        _wait(started)
     return time.perf_counter() - t0
 
 

@@ -149,3 +149,45 @@ def test_failed_load_leaves_its_log(build_dir):
         log = f.read()
     assert "ctypes.CDLL" in log and lib in log
     assert "paged_attention" not in kernels._libs
+
+
+def test_build_all_finds_generated_sources_while_libraries_compile(
+        build_dir, tmp_path, monkeypatch):
+    """`build_all(generated=fn)` starts every library's nvcc, then calls
+    fn, then compiles its texts beside them: each nvcc started is
+    recorded, and a stub nvcc writes its output."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "while [ $# -gt 1 ]; do\n"
+        "  if [ \"$1\" = -o ]; then touch \"$2\"; fi\n"
+        "  shift\n"
+        "done\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}"
+                       + os.environ.get("PATH", ""))
+    monkeypatch.setattr(kernels, "GEN_DIR", str(build_dir / "gen"))
+    events = []
+    popen = kernels.subprocess.Popen
+
+    def recorded(cmd, **kw):
+        events.append(os.path.basename(cmd[-1]))
+        return popen(cmd, **kw)
+
+    monkeypatch.setattr(kernels.subprocess, "Popen", recorded)
+
+    def found():
+        events.append("found")
+        return [("fusion_t_0", "// a generated source\n")]
+
+    kernels.build_all(["nms", "paged_attention"], generated=found)
+    assert events[:3] in (["nms.cu", "paged_attention.cu", "found"],
+                          ["paged_attention.cu", "nms.cu", "found"])
+    assert len(events) == 4 and events[3].startswith("fusion_t_0")
+    assert os.path.exists(kernels.library_path("nms"))
+    assert os.path.exists(kernels.generated_paths(
+        "fusion_t_0", "// a generated source\n")[1])

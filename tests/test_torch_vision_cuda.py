@@ -9,8 +9,13 @@ mxnet_tpu, so it runs on a machine with only the port installed:
 Every NMS case compares keep bits exactly: random boxes, integer boxes
 on a small grid (IoUs that tie with the threshold exactly), boxes that
 all overlap, K not a multiple of 64, K = 1, images with no valid
-candidate, per-class and forced suppression, and images grouped under a
-small scratch cap.
+candidate, per-class and forced suppression; segments at the kernel's
+tile (256) less one, at it, one past it and over several tiles, with a
+dominant class; kept sets past shared memory (the global spill, for an
+image segment and for class segments, in a block and in a cluster of
+8); class ids over a range too wide to partition (each pair compares
+classes); Proposal's forced 6,000 candidates (a cluster); 32 images of
+20 classes with mixed valid counts (a block a segment).
 """
 import numpy as np
 import pytest
@@ -105,13 +110,106 @@ def test_ties_at_the_threshold(cuda_device):
                   True).tolist() == [[True, False, True]]
 
 
-def test_groups_under_a_small_scratch_cap(cuda_device, monkeypatch):
-    rs = np.random.RandomState(3)
-    boxes, cls, valid = _case(rs, 5, 256, "random", [256, 200, 3, 256, 90])
-    monkeypatch.setattr(tnms, "SCRATCH_CAP", 2 * 256 * 4 * 8)
-    before = tnms.nms.groups
-    _check(cuda_device, boxes, cls, valid, 0.4, False)
-    assert tnms.nms.groups - before >= 3
+def _classes(rs, b, k, spread):
+    if spread == "dominant":   # nine in ten candidates of class 4
+        return torch.from_numpy(np.where(
+            rs.uniform(size=(b, k)) < 0.9, 4, rs.randint(0, 20, (b, k))))
+    return torch.from_numpy(rs.randint(0, spread, (b, k)))
+
+
+@pytest.mark.parametrize("k", [255, 256, 257, 1000])
+@pytest.mark.parametrize("spread", [1, "dominant", 20])
+@pytest.mark.parametrize("force", [False, True])
+def test_tile_boundaries(cuda_device, k, spread, force):
+    rs = np.random.RandomState(k + 3 * force)
+    boxes, _, valid = _case(rs, 2, k, "random", [k, k - 1])
+    boxes = boxes * 0.5        # smaller boxes: most of a tile kept
+    before = tnms.nms.launches
+    keep = _check(cuda_device, boxes, _classes(rs, 2, k, spread), valid,
+                  0.4, force)
+    assert tnms.nms.launches - before == 2 and keep.any()
+
+
+def _disjoint(n):
+    """n boxes on a grid, none touching another: all kept."""
+    side = int(np.ceil(np.sqrt(n)))
+    i = np.arange(n)
+    lo = np.stack([i % side, i // side], -1).astype(np.float32)
+    return torch.from_numpy(np.concatenate([lo, lo + 0.5], -1)[None])
+
+
+@pytest.mark.parametrize("cluster", [1, 8])
+def test_a_kept_set_past_shared_memory(cuda_device, monkeypatch, cluster):
+    """16,384 disjoint boxes of one class: one segment keeps them all,
+    past the 13,541 a block's shared memory holds (in one block), or
+    shared by a cluster of 8."""
+    monkeypatch.setattr(tnms, "CLUSTER", cluster)
+    n = 16384
+    boxes = _disjoint(n)
+    cls = torch.zeros(1, n, dtype=torch.int64)
+    valid = torch.ones(1, n, dtype=torch.bool)
+    for force in (False, True):
+        got = tnms.nms(boxes.to(cuda_device), cls.to(cuda_device),
+                       valid.to(cuda_device), 0.1, force)
+        torch.cuda.synchronize()
+        assert bool(got.all())
+    # boxes 2j and 2j + 1 coincide: every second box goes
+    twin = _disjoint(n // 2).repeat_interleave(2, 1)
+    got = tnms.nms(twin.to(cuda_device), cls.to(cuda_device),
+                   valid.to(cuda_device), 0.5, False)
+    assert torch.equal(got.cpu(), torch.arange(n)[None] % 2 == 0)
+
+
+@pytest.mark.parametrize("spread", [3, "dominant"])
+def test_class_segments_past_their_shared_memory(cuda_device, monkeypatch,
+                                                 spread):
+    """A class segment's block keeps 8 boxes in shared memory here; the
+    rest go through the global spill area (9 segments: a cluster of 8
+    blocks each; 60: a block each)."""
+    monkeypatch.setattr(tnms, "PARTITION_KEPT", 8)
+    rs = np.random.RandomState(11)
+    boxes, _, valid = _case(rs, 3, 600, "random", [600, 599, 257])
+    _check(cuda_device, boxes * 0.5, _classes(rs, 3, 600, spread), valid,
+           0.3, False)
+
+
+@pytest.mark.parametrize("force", [False, True])
+@pytest.mark.parametrize("cluster", [1, 8])
+def test_a_wide_class_range(cuda_device, monkeypatch, force, cluster):
+    """Class ids 0, 5,000 and 10,000: too wide to partition, so a segment
+    is an image and each pair compares classes (and, in one block past
+    8,942 kept boxes, the spill holds their classes too)."""
+    monkeypatch.setattr(tnms, "CLUSTER", cluster)
+    rs = np.random.RandomState(12)
+    boxes, _, valid = _case(rs, 2, 700, "grid", [700, 350])
+    cls = torch.from_numpy(rs.randint(0, 3, (2, 700)) * 5000)
+    _check(cuda_device, boxes, cls, valid, 0.3, force)
+    # 7,000 pairs of coinciding boxes: the second of a pair goes when its
+    # class is the first's (or under force_suppress), nothing else
+    n = 14000
+    cls = torch.from_numpy(rs.randint(0, 3, (1, n)) * 5000)
+    twin = _disjoint(n // 2).repeat_interleave(2, 1)
+    want = torch.ones(1, n, dtype=torch.bool)
+    want[:, 1::2] = (cls[:, 1::2] != cls[:, ::2]) & (not force)
+    assert want.sum() > 8994 or force
+    got = tnms.nms(twin.to(cuda_device), cls.to(cuda_device),
+                   want.new_ones(1, n).to(cuda_device), 0.5, force)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_proposal_shape_and_a_batch_of_32(cuda_device):
+    """Proposal's call (one image, 6,000 forced candidates at 0.7), and
+    32 images of 1,000 candidates with mixed valid counts, 0 among them."""
+    rs = np.random.RandomState(13)
+    boxes, cls, valid = _case(rs, 1, 6000, "random", [6000])
+    keep = _check(cuda_device, boxes * 0.3, cls * 0, valid, 0.7, True)
+    assert 0 < keep.sum() < 6000
+    nvalid = rs.randint(0, 1001, 32)
+    nvalid[[3, 17]] = 0
+    nvalid[5] = 1000
+    boxes, _, valid = _case(rs, 32, 1000, "random", nvalid)
+    _check(cuda_device, boxes * 0.5, _classes(rs, 32, 1000, 20), valid,
+           0.5, False)
 
 
 def test_refusals(cuda_device):

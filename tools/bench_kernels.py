@@ -8,6 +8,8 @@ a cold L2 before each call, by a 128 MB write as its `ms` and by a
     python3 tools/bench_kernels.py paged [--src a.cu --src b.cu ...]
         [--profile]
     python3 tools/bench_kernels.py softmax [--src a.cu[@BLOCK] ...]
+    python3 tools/bench_kernels.py nms --inputs FILE [--src a.cu ...]
+        [--phases]
     python3 tools/bench_kernels.py host [--root DIR --root DIR ...]
     (each also takes [--rounds 2] [--no-check] [--out results.json])
 
@@ -26,13 +28,29 @@ a cold L2 before each call, by a 128 MB write as its `ms` and by a
   as PATH@BLOCK (an earlier tree's kernel at its own geometry); beside
   torch.softmax, torch.scatter_add and, at (32, 1000), the launch floor
   (an empty kernel through the same launcher at the forward's geometry).
+- nms: builds of the NMS kernel (V1; default
+  mxnet_tpu_torch/csrc/nms.cu), each with the library's flags, at
+  chip_smoke.py phase 13's calls: the detection's (32 x 117,976), its
+  image 0's first 4,096 candidates and Proposal's (1 x 6,000), read from
+  FILE; where FILE is missing, chip_smoke.py's phase 13 runs first (its
+  SSD trained for its 10 steps) and saves them there. A build of the
+  mask-and-scan design (its C interface has nms_max_candidates) runs
+  under that design's wrapper, any other under ops/nms.py's. Each time
+  is a whole call of the wrapper, its host sync included; the ratio of
+  the last source to the first, each call's bound, and each kernel's
+  device time and the call's top host ops (torch.profiler) follow.
+  `--phases` also builds a copy of the last source whose segment
+  blocks count, in thread 0, the clock64 cycles of each phase of their
+  tile loop (fill, gather, cross test, the cluster's OR, survivors,
+  their mask, the scan, append), and prints each call's means.
 - host: the host µs of a push, a push_into, a torch.mul and a
   torch.empty (chip_smoke.py's `_host_us`) with the package found under
   each --root (default this checkout), one process a turn.
 
 Each source is first held to its plain version (the paged kernels at
 chip_smoke.py's tolerances, the softmax forward at 1e-6 absolute and its
-backward bit for bit) unless `--no-check` (diagnostic builds that skip
+backward bit for bit, NMS's keep bits exactly at 4,096 candidates and
+at Proposal's call) unless `--no-check` (diagnostic builds that skip
 part of the work). Prints one line per (row, source): the mean over the
 turns, then each turn. Variant sources and other trees go under a
 directory that .gitignore lists (`_tree/`, `mxnet_tpu_torch/_build/`),
@@ -97,18 +115,19 @@ def report(label, res, bound_ms):
 
 
 # ------------------------------------------------------------- paged B4/B5
-def build_paged(kernels, srcs):
-    """Build the sources with the package's flags, one nvcc each, all
-    started together; returns their libraries."""
+def build_paged(kernels, srcs, flags=None):
+    """Build the sources with the package's flags (or `flags`), one nvcc
+    each, all started together; returns their libraries."""
+    flags = tuple(flags or kernels.NVCC_FLAGS)
     jobs = []
     for src in srcs:
         with open(src, "rb") as f:
             digest = hashlib.sha256(
-                f.read() + " ".join(kernels.NVCC_FLAGS).encode()).hexdigest()
+                f.read() + " ".join(flags).encode()).hexdigest()
         stem = os.path.splitext(os.path.basename(src))[0]
         jobs.append((stem, src, os.path.join(
             kernels.BUILD_DIR, "bench", f"lib{stem}-{digest[:16]}.so"),
-            kernels.NVCC_FLAGS))
+            flags))
     with kernels._lock:
         kernels._compile(jobs)
     return [job[2] for job in jobs]
@@ -243,6 +262,257 @@ def run_softmax(torch, cs, args, flush):
     return out
 
 
+# ---------------------------------------------------------------- nms V1
+def mask_scan_nms(torch, lib, boxes, classes, valid, thresh, force,
+                  cap=16 << 30):
+    """The wrapper of csrc/nms.cu's mask-and-scan design (a K x K bit mask
+    over the valid prefix, then one scan block an image; images grouped
+    so that the mask stays under `cap` bytes), for a build of that
+    source: its C interface has nms_max_candidates."""
+    b, k = valid.shape
+    dev = boxes.device
+    keep = torch.empty((b, k), dtype=torch.uint8, device=dev)
+    classes = classes.to(torch.int32).contiguous()
+    nvalid = valid.sum(1, dtype=torch.int32)
+    counts = nvalid.tolist()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    start = 0
+    while start < b:
+        rows, end = 0, start
+        while end < b:
+            r = max(rows, counts[end])
+            if end > start and (end - start + 1) * r * -(-r // 64) * 8 > cap:
+                break
+            rows, end = r, end + 1
+        words = -(-rows // 64)
+        mask = torch.empty((end - start, rows, words), dtype=torch.int64,
+                           device=dev)
+        err = lib.nms_forward(
+            ctypes.c_void_p(boxes[start].data_ptr()),
+            ctypes.c_void_p(classes[start].data_ptr()),
+            ctypes.c_void_p(nvalid[start:].data_ptr()),
+            ctypes.c_void_p(mask.data_ptr()),
+            ctypes.c_void_p(keep[start].data_ptr()), end - start, k, rows,
+            words, float(thresh), int(bool(force)), ctypes.c_void_p(stream))
+        if err:
+            sys.exit(f"nms_forward (mask and scan) failed: {err}")
+        del mask
+        start = end
+    return keep.view(torch.bool)
+
+
+def nms_variants(torch, srcs):
+    """(label, nms function) of each source's build: the package's
+    wrapper over a build with its C interface, mask_scan_nms over one
+    with the mask-and-scan interface."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import nms as tnms
+
+    flags = kernels.NVCC_FLAGS + kernels.LIBRARIES[tnms.LIBRARY][1]
+    out = []
+    for src, path in zip(srcs, build_paged(kernels, srcs, flags)):
+        lib = ctypes.CDLL(path)
+        label = os.path.relpath(src, ROOT)
+        if hasattr(lib, "nms_max_candidates"):
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.nms_forward.argtypes = ([ptr] * 5 + [i32] * 4
+                                        + [ctypes.c_float, i32, ptr])
+            lib.nms_forward.restype = i32
+            out.append((label, lambda *a, lib=lib: mask_scan_nms(
+                torch, lib, *a)))
+        else:
+            lib = tnms.bind_library(lib)
+
+            def run(*a, lib=lib):
+                tnms._lib = lib
+                return tnms.nms(*a)
+            out.append((label, run))
+    return out
+
+
+def profile_nms(torch, fn, args, label):
+    """Device ms of each kernel in one call of fn, and the host µs of
+    the call's torch ops with the most."""
+    act = [torch.profiler.ProfilerActivity.CUDA,
+           torch.profiler.ProfilerActivity.CPU]
+    fn(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    for e in events:
+        if "nms" in e.key and e.self_device_time_total > 0:
+            print(f"  profile {label}: {e.key[:60]} "
+                  f"{e.self_device_time_total / 1e3!r} ms (x{e.count})",
+                  flush=True)
+    host = sorted((e for e in events if e.key.startswith(("aten::", "cuda"))),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    print(f"  host {label}: " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total:.0f} us" for e in host), flush=True)
+
+
+# the segment kernel's tile loop, by the comment that opens each phase:
+# (name, marker); a phase's clock runs from its marker to the next one
+NMS_PHASES = (("fill", "    // 1. the tile's members"),
+              ("gather", "    // 2. the tile's boxes"),
+              ("cross", "    // 3. cross test"),
+              ("or", "    // every block's bits of this tile are final"),
+              ("survivors", "    // 4. the survivors"),
+              ("mask", "    // 5. the survivors' overlap"),
+              ("scan", "    // 6. one warp walks"),
+              ("append", "    // 7. the kept survivors"))
+
+
+def nms_phase_source(src):
+    """A copy of csrc/nms.cu whose segment blocks with at least
+    nms_phase_reset(min) members add up, in thread 0, the clock64 cycles
+    of each phase of their tile loop; nms_phase_read gets the sums and
+    the blocks counted."""
+    n = len(NMS_PHASES)
+    out = src.replace("namespace {\n", f"""__device__ unsigned long long g_phase[{n + 1}];
+__device__ int g_phase_min;
+namespace {{
+""", 1)
+    out = out.replace("  if (cnt == 0) return;\n", f"""  if (cnt == 0) return;
+  const bool prof = threadIdx.x == 0 && cnt >= g_phase_min;
+  long long ph[{n}] = {{0}};
+  long long t_last = clock64();
+#define TICK(k) if (prof) {{ const long long now = clock64(); \\
+    if (k >= 0) ph[k] += now - t_last; t_last = now; }}
+""", 1)
+    for k, (_, mark) in enumerate(NMS_PHASES):
+        if out.count(mark) != 1:
+            sys.exit(f"nms --phases: {mark.strip()!r} is not in the source")
+        out = out.replace(mark, f"    TICK({k - 1})\n" + mark)
+    tail = "    parity ^= 1;\n    __syncthreads();\n  }\n"
+    if out.count(tail) != 1:
+        sys.exit("nms --phases: the tile loop's end is not in the source")
+    out = out.replace(tail, f"""    parity ^= 1;
+    __syncthreads();
+    TICK({n - 1})
+  }}
+  if (prof) {{
+    for (int k = 0; k < {n}; ++k)
+      atomicAdd(&g_phase[k], static_cast<unsigned long long>(ph[k]));
+    atomicAdd(&g_phase[{n}], 1ull);
+  }}
+""")
+    return out + f"""
+extern "C" void nms_phase_reset(int min_members) {{
+  unsigned long long z[{n + 1}] = {{0}};
+  cudaMemcpyToSymbol(g_phase, z, sizeof z);
+  cudaMemcpyToSymbol(g_phase_min, &min_members, sizeof(int));
+}}
+extern "C" void nms_phase_read(unsigned long long* out) {{
+  cudaMemcpyFromSymbol(out, g_phase, {n + 1} * sizeof(unsigned long long));
+}}
+"""
+
+
+def nms_phases(torch, src, calls):
+    """Each call's mean clock64 cycles a segment block spends in each
+    phase of its tile loop (csrc/nms.cu patched by nms_phase_source),
+    over the blocks of at least 20,000 members and over all."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import nms as tnms
+
+    with open(src) as f:
+        text = nms_phase_source(f.read())
+    path = os.path.join(kernels.BUILD_DIR, "bench", "nms_phases.cu")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+    flags = kernels.NVCC_FLAGS + kernels.LIBRARIES[tnms.LIBRARY][1]
+    lib = tnms.bind_library(ctypes.CDLL(build_paged(kernels, [path],
+                                                    flags)[0]))
+    lib.nms_phase_reset.argtypes = [ctypes.c_int]
+    tnms._lib = lib
+    n = len(NMS_PHASES)
+    out = {}
+    for name, least in (("detection", 20000), ("detection", 0),
+                        ("proposal", 0)):
+        tnms.nms(*calls[name])
+        torch.cuda.synchronize()
+        lib.nms_phase_reset(least)
+        tnms.nms(*calls[name])
+        torch.cuda.synchronize()
+        got = (ctypes.c_ulonglong * (n + 1))()
+        lib.nms_phase_read(got)
+        blocks = max(got[n], 1)
+        cycles = {p: got[k] / blocks for k, (p, _) in enumerate(NMS_PHASES)}
+        total = sum(cycles.values())
+        print(f"nms phases {name}, blocks of >= {least} members: {got[n]} "
+              f"blocks, mean cycles a block {total!r}: " + json.dumps(
+                  {p: [c, round(c / max(total, 1), 4)]
+                   for p, c in cycles.items()}), flush=True)
+        out[f"{name} >= {least}"] = {"blocks": got[n], "cycles": cycles}
+    tnms._lib = None
+    return out
+
+
+def run_nms(torch, cs, args, flush):
+    from mxnet_tpu_torch.ops import nms as tnms
+
+    if not args.inputs:
+        sys.exit("nms: --inputs PATH is required")
+    if not os.path.exists(args.inputs):
+        # phase 13 writes them (its SSD trained for its 10 steps)
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import kernels
+
+        torch.backends.cudnn.allow_tf32 = False
+        kernels.build_all([tnms.LIBRARY])
+        cs.NMS_SAVE = args.inputs
+        cs.phase_vision(torch, mx)
+        torch.cuda.empty_cache()
+    srcs = args.src or [os.path.join(ROOT, "mxnet_tpu_torch", "csrc",
+                                     "nms.cu")]
+    variants = nms_variants(torch, srcs)
+    dev = torch.device("cuda")
+    saved = torch.load(args.inputs)
+    calls = {name: [a.to(dev) if torch.is_tensor(a) else a for a in call]
+             for name, call in saved.items()}
+    det = calls["detection"]
+    k = cs.NMS_CHECK_K[0]
+    small = [det[0][:1, :k], det[1][:1, :k], det[2][:1, :k], det[3],
+             det[4]]
+    calls = {"detection": det, "small": small,
+             "proposal": calls["proposal"]}
+    for name in ("small", "proposal"):
+        want = tnms.nms_plain(*calls[name])
+        for label, fn in variants:
+            diff = int((fn(*calls[name]) != want).sum())
+            print(f"nms {name}: {label} against nms_plain: {diff} keep bits "
+                  "differ", flush=True)
+            if diff and not args.no_check:
+                sys.exit(f"{label} differs from nms_plain at {name}")
+    out = {}
+    for name, a in calls.items():
+        keep = variants[-1][1](*a)
+        torch.cuda.synchronize()
+        bound = cs._nms_bound(torch, keep, a[2], a[1], a[4])
+        reps = 3 if name == "detection" else 20
+        res = time_turns(torch, cs, [(label, lambda f=fn, a=a: f(*a))
+                                     for label, fn in variants], flush,
+                         reps, args.rounds)
+        report(f"nms {name} {list(a[0].shape[:2])}", res,
+               bound["bound_ms"])
+        first, last = (res[label]["ms_mean"] for label in
+                       (variants[0][0], variants[-1][0]))
+        print(f"nms {name}: {variants[-1][0]} / {variants[0][0]} = "
+              f"{last / first!r} (bound {bound['bound_ms']!r} ms, "
+              f"{bound['pairs']!r} pairs; all classes' "
+              f"{bound['bound_ms_all_pairs']!r} ms)", flush=True)
+        for label, fn in variants:
+            profile_nms(torch, fn, a, f"{name} {label}")
+        out[name] = {"bound": bound, "rows": res}
+    tnms._lib = None
+    if args.phases:
+        out["phases"] = nms_phases(torch, srcs[-1], calls)
+    return out
+
+
 # ------------------------------------------------------ host of a push
 def host_turn(root):
     """One process's host µs with the package under `root`: the last
@@ -292,7 +562,7 @@ def run_host(args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("paged", "softmax", "host",
+    ap.add_argument("mode", choices=("paged", "softmax", "nms", "host",
                                      "host-turn"))
     ap.add_argument("root_of_turn", nargs="?", help=argparse.SUPPRESS)
     ap.add_argument("--src", action="append",
@@ -306,6 +576,11 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="paged: also print each kernel's device time a "
                     "call (torch.profiler, the first source, clean L2)")
+    ap.add_argument("--phases", action="store_true",
+                    help="nms: also the phase clocks of the last source's "
+                    "segment blocks (a patched copy)")
+    ap.add_argument("--inputs", help="nms: the file of phase 13's V1 "
+                    "arguments (written first when missing)")
     ap.add_argument("--out", help="also write the numbers as JSON here")
     args = ap.parse_args()
     if args.mode == "host-turn":
@@ -324,7 +599,8 @@ def main():
     else:
         flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                             device="cuda")
-        run = run_paged if args.mode == "paged" else run_softmax
+        run = {"paged": run_paged, "softmax": run_softmax,
+               "nms": run_nms}[args.mode]
         res[args.mode] = run(torch, cs, args, flush)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
