@@ -30,13 +30,18 @@ each of which exits non-zero on failure:
                   pages, float32 pool, prefix cache and merged step on:
                   10 concurrent greedy requests (prompts of 32..1024
                   tokens, several sharing a 256-token prefix, 64 new
-                  tokens each) through submit/stream. Checks: all finish,
-                  the kernel ran n_layers times per decode step, prefix
-                  hits > 0, no call outside the warmed grid; with the
-                  prefix cache off every stream equals the same request
-                  served alone; prefix-hit streams equal the cold ones
-                  except at a near-tie (top-2 logit gap < 1e-3); a short
-                  stream equals dense greedy decoding (same near-tie rule)
+                  tokens each) through submit/stream, each decode step a
+                  replayed CUDA graph (two captured a cell at warmup,
+                  greedy and sampling). Checks: all finish, the kernel
+                  ran n_layers times per decode step, prefix hits > 0,
+                  no capture after warmup; torch.profiler over 8
+                  requests of 16 tokens (wall, device time, busy share);
+                  with the prefix cache off every stream equals the same
+                  request served alone; prefix-hit streams equal the
+                  cold ones except at a near-tie (top-2 logit gap <
+                  1e-3); a short stream equals dense greedy decoding
+                  (same near-tie rule). The cache-off model stays open
+                  for phase 14
   4. kv dtypes    the same model with int8 and bf16 pools on a shorter
                   script; top-1 agreement with float32 (quant_parity_probe)
   5. codegen      the Executor path of the three fusion-codegen template
@@ -195,11 +200,40 @@ each of which exits non-zero on failure:
                   and bound) and
                   ROIPooling of its 300 rois to 7x7 over a (1, 512, 38,
                   63) map, card and CPU bit-identical
+ 14. decode tier  (runs after phase 4, on phase 3's model and its
+                  cache-off twin) sampled decoding, speculative
+                  decoding, the split tail-prefill grid and drain/resume
+                  at the docs/serving.md width, max_batch 8, float32
+                  pools. (b) phase 3's 10 prompts at temperature 0.8,
+                  top_k 40, top_p 0.95, seeds 1000-1009, 64 new tokens:
+                  concurrent on 1024 pages, one at a time, and on a
+                  160-page pool that preempts, all equal; the card's
+                  Gumbel noise for 8 rows bit-identical to the host's.
+                  (e) those 10 sampled and 10 greedy requests on the
+                  small pool, drain(timeout=0) after 160 tokens, each
+                  handed-off record resumed by admit_resumed on the
+                  1024-page model: delivered + resumed equals the
+                  uninterrupted stream. (c) K = 4 speculation, a
+                  self-draft (gate v: > 1.5 accepted tokens a target
+                  step) and a real draft (vocab 32000, d_model 512, 4
+                  layers, 8 heads, d_ff 2048, seed 1): greedy streams
+                  equal phase 3's target-only ones, B4 launched K x
+                  draft layers a target step; the sampled self-draft
+                  finishes; on the self-draft engine one step of each
+                  family (decode and draft+verify, greedy and sampling)
+                  from its graph bit-identical to the same step run
+                  eagerly. (d) prefix cache on, merged step off: hits
+                  equal the cold streams. Every stream comparison passes
+                  where equal or diverging first at a near tie of the
+                  cache-off engine's logits (top-2 gap of filtered +
+                  Gumbel, or of the logits, < 1e-3, or a preceding mass
+                  within 1e-6 of top_p), each divergence counted. A
+                  `decode: {...}` summary line before the kernel line
 
 The last two lines of standard output are
 one JSON object with every kernel's numbers and one JSON object naming
-the device; the summary lines of phases 11, 12 and 13 (`surface: {...}`,
-`lm: {...}`, `vision: {...}`) come before them.
+the device; the summary lines of phases 11, 12, 13 and 14 (`surface:
+{...}`, `lm: {...}`, `vision: {...}`, `decode: {...}`) come before them.
 """
 from __future__ import annotations
 
@@ -750,9 +784,10 @@ def _empty_cache(torch, dev):
         torch.cuda.empty_cache()
 
 
-def _serve_concurrent(model, prompts, max_new):
-    """Stream every prompt from its own thread; returns (streams, time
-    to first token per request, wall seconds)."""
+def _serve_concurrent(model, prompts, max_new, samplings=None):
+    """Stream every prompt from its own thread (request i with
+    samplings[i] when given); returns (streams, time to first token per
+    request, wall seconds)."""
     n = len(prompts)
     streams, ttft, errors = [None] * n, [None] * n, []
 
@@ -761,7 +796,8 @@ def _serve_concurrent(model, prompts, max_new):
             t0 = time.perf_counter()
             toks = []
             for tok in model.stream(prompts[i], max_new_tokens=max_new,
-                                    timeout=600):
+                                    timeout=600, sampling=None
+                                    if samplings is None else samplings[i]):
                 if not toks:
                     ttft[i] = time.perf_counter() - t0
                 toks.append(tok)
@@ -840,16 +876,40 @@ def _device_time(torch, prof, wall_us, top, label):
 
 def _profile_window(torch, model, prompts):
     """torch.profiler over 8 concurrent requests of 16 new tokens on a
-    warm model: device busy share of the window and the kernels with
-    the most device time."""
+    warm model: device busy share of the window, the kernels with the
+    most device time, and the host seconds of the window's calls into
+    the engine: prefill (eager) and decode steps (graphs on the card)."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        t0 = time.perf_counter()
-        _serve_concurrent(model, prompts, 16)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    return _device_time(torch, prof, wall_us, 12, "window")
+    eng = model.engine
+    spent = {"prefill": 0.0, "step": 0.0}
+
+    def timed(name):
+        fn = getattr(eng, name)
+
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    eng.prefill, eng.step = timed("prefill"), timed("step")
+    try:
+        with torch.profiler.profile(activities=act) as prof:
+            t0 = time.perf_counter()
+            _serve_concurrent(model, prompts, 16)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        del eng.prefill, eng.step
+    out = _device_time(torch, prof, wall_us, 12, "window")
+    out["prefill_us"] = spent["prefill"] * 1e6
+    out["steps_us"] = spent["step"] * 1e6
+    log(f"profile: the window's prefill calls {out['prefill_us']!r} us, "
+        f"its decode steps {out['steps_us']!r} us (host clock)")
+    return out
 
 
 def _top2_gap(logits):
@@ -864,7 +924,7 @@ def _first_divergence(a, b):
     return None if len(a) == len(b) else min(len(a), len(b))
 
 
-def phase_serving(torch, decoder, cfg, dev, profile=False):
+def phase_serving(torch, decoder, cfg, dev):
     from mxnet_tpu_torch import decoding as dec
     from mxnet_tpu_torch.decoding import attention
 
@@ -882,16 +942,26 @@ def phase_serving(torch, decoder, cfg, dev, profile=False):
                              num_pages=1024, kv_dtype="float32",
                              device=dev)
     res["warmup_s"] = time.perf_counter() - t0
-    res["warmup_grid"] = model.engine.trace_counts()
+    res["warmup_grid"] = grid = model.engine.trace_counts()
+    res["captures"] = model.engine.traces()
     log(f"serving: warmup {res['warmup_s']!r} s, grid "
-        f"{len(res['warmup_grid'])} shapes, step rows "
-        f"{model.engine.step_rows}, buckets {model.engine.page_buckets}")
+        f"{len(res['warmup_grid'])} shapes ({res['captures']} captures "
+        f"and first calls), step rows {model.engine.step_rows}, buckets "
+        f"{model.engine.page_buckets}")
+    if torch.device(dev).type == "cuda":
+        # each decode cell's two CUDA graphs (greedy, sampling)
+        check(all(grid[f"decode@{b}"] == 2
+                  for b in model.engine.page_buckets),
+              f"decode cells not captured twice each: {grid}")
     attention.reset_launch_counts()
     hot, ttft, wall = _serve_concurrent(model, prompts, max_new)
     launches = attention.launch_counts()
     snap = model.stats.snapshot()
-    if profile:
-        res["profile"] = _profile_window(torch, model, prompts[:8])
+    # the busy share of a window of the graphed step (every run; PR 6's
+    # eager step read 13.3% on the same window)
+    res["profile"] = _profile_window(torch, model, prompts[:8])
+    check(model.stats.snapshot()["traces_since_warmup"] == 0,
+          "the profile window captured a graph")
     model.close()
     steps = snap["steps"]
     res.update({"launches": launches, "steps": steps, "stats": snap,
@@ -931,7 +1001,6 @@ def phase_serving(torch, decoder, cfg, dev, profile=False):
              for p in prompts]
     check(cold_model.stats.snapshot()["traces_since_warmup"] == 0,
           "cache-off model left the warmed grid")
-    cold_model.close()
     for i, (c, a) in enumerate(zip(cold, alone)):
         check(c == a, f"request {i}: concurrent stream != served alone "
               f"(first divergence at {_first_divergence(c, a)})")
@@ -974,10 +1043,10 @@ def phase_serving(torch, decoder, cfg, dev, profile=False):
     res["dense_reference_divergence"] = j
     log(f"serving: first {n_ref} tokens vs dense greedy: "
         f"{'equal' if j is None else f'near-tie divergence at {j}'}")
-    del engine, cold_model
-    _empty_cache(torch, dev)
+    res.update(prompts=prompts, cold=cold)
     log("phase 3 ok: serving at full width")
-    return res, hot
+    # the cache-off model stays open: phase 14 serves on it
+    return res, hot, cold_model
 
 
 # ------------------------------------------------------------ phase 4
@@ -1028,6 +1097,353 @@ def phase_kv_dtypes(torch, decoder, cfg, dev):
             f"{probe['logit_drift_max']!r}, capacity ratio "
             f"{probe['kv_pool_capacity_ratio']!r}")
     log("phase 4 ok: int8 and bf16 pools")
+    return res
+
+
+# ----------------------------------------------------------- phase 14
+# the request mix of phase 14(b): docs/serving.md's "Sampling" example
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+SAMPLE_SEED = 1000                # request i draws from seed 1000 + i
+SPEC_K = 4
+# the real draft: docs/serving.md names no draft width; this one (a
+# quarter of the target's layers and half its width, the target's
+# vocabulary and context) is the decode tier's own choice
+DRAFT_CFG = dict(vocab=32000, d_model=512, n_layers=4, n_heads=8,
+                 d_ff=2048, max_len=2048)
+SMALL_POOL = 160                  # pages: phase 3's script preempts here
+DECODE_DEVICE = "cuda"
+DRAIN_AFTER = 160                 # tokens delivered before drain()
+NEAR_TIE_MASS = 1e-6
+
+
+def _samplings(n):
+    from mxnet_tpu_torch.decoding import SamplingParams
+
+    return [SamplingParams(seed=SAMPLE_SEED + i, **SAMPLED)
+            for i in range(n)]
+
+
+def _draw_margins(logits, sp, position):
+    """(top-2 gap, distance of a preceding mass to top_p) of the draw at
+    `position` from these logits (host float32): the top-2 gap of
+    filtered + g for a sampled request, of the logits for a greedy one
+    (mass distance inf)."""
+    import torch
+
+    from mxnet_tpu_torch.decoding import sampling as samp
+
+    if sp is None or sp.temperature <= 0:
+        return _top2_gap(logits), float("inf")
+    scaled = torch.from_numpy(np.asarray(logits, np.float32)) / \
+        sp.temperature
+    filt = samp.filter_logits(scaled, sp.top_k, sp.top_p)
+    g = samp.gumbel(samp.stream_key(sp.seed, position, samp.SALT_TOKEN),
+                    scaled.shape[-1])
+    desc = np.sort(scaled.double().numpy())[::-1]
+    e = np.exp(desc - desc[0])
+    probs = e / e.sum()
+    before = np.cumsum(probs) - probs
+    return (_top2_gap((filt + g).numpy()),
+            float(np.abs(before - sp.top_p).min()))
+
+
+def _divergences(engine, prompts, got, want, samplings, label):
+    """The first divergence of each pair of streams, each of which must
+    be a near tie of the cache-off engine's logits (the top-2 gap under
+    NEAR_TIE, or a preceding mass within NEAR_TIE_MASS of top_p);
+    returns them, counted and logged."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        j = _first_divergence(a, b)
+        if j is None:
+            continue
+        sp = samplings[i] if samplings else None
+        ctx = prompts[i] + list(b[:j])
+        gap, margin = _draw_margins(_next_logits(engine, ctx), sp, len(ctx))
+        out.append({"request": i, "position": j, "top2_gap": gap,
+                    "mass_margin": margin})
+        check(gap < NEAR_TIE or margin < NEAR_TIE_MASS,
+              f"{label}: request {i} diverges at {j} with top-2 gap "
+              f"{gap!r} and mass margin {margin!r}: not a near tie")
+    log(f"decode tier: {label}: {len(out)} near-tie divergences of "
+        f"{len(got)} streams {out}")
+    return out
+
+
+def _graph_vs_eager(torch, engine, prompts):
+    """One step of each family (decode and the draft+verify pair, each
+    greedy and sampling) from its graph against the same step run
+    eagerly on the same pool state: equal tokens and equal written
+    pages. Rows hold phase 3's first prompts, prefilled."""
+    from mxnet_tpu_torch.decoding.blocks import pages_needed
+    from mxnet_tpu_torch.serving.batcher import pick_bucket
+
+    rows, p = engine.max_batch, engine.page_size
+    ps = prompts[:rows]
+    tables = [engine.allocator.alloc(pages_needed(len(x) + SPEC_K + 1, p))
+              for x in ps]
+    try:
+        last = [engine.prefill(x, t[:pages_needed(len(x), p)])
+                for x, t in zip(ps, tables)]
+        bucket = pick_bucket(max(len(t) for t in tables),
+                             engine.page_buckets)
+        table = np.zeros((rows, bucket), np.int32)
+        for r, t in enumerate(tables):
+            table[r, :len(t)] = t
+        lengths = np.asarray([len(x) for x in ps], np.int32)
+        step_rows = (np.asarray(last, np.int32), table, lengths,
+                     np.ones((rows,), bool))
+        sps = _samplings(rows)
+        temps = np.asarray([0.0 if r % 4 == 0 else SAMPLED["temperature"]
+                            for r in range(rows)], np.float32)
+        samp = (np.asarray([sp.seed for sp in sps], np.uint32), temps,
+                np.full((rows,), SAMPLED["top_k"], np.int32),
+                np.full((rows,), SAMPLED["top_p"], np.float32))
+        written = torch.as_tensor(np.unique(np.concatenate(
+            [t[len(x) // p:] for x, t in zip(ps, tables)])),
+            device=engine.device)
+        out = {}
+        for family in ("decode", "spec"):
+            for sampled in (False, True):
+                sarr = samp if sampled else \
+                    samp[:1] + (np.zeros_like(temps),) + samp[2:]
+
+                def step():
+                    if family == "spec":
+                        return engine.spec_step(*step_rows,
+                                                np.ones((rows,), bool),
+                                                *sarr)
+                    return (engine.step(*step_rows, *sarr),)
+
+                with engine.eager():
+                    eager = step()
+                pages = [pool.data[:, written].clone()
+                         for pool in (engine._k, engine._v)]
+                graphed = step()
+                same = all(np.array_equal(a, b)
+                           for a, b in zip(eager, graphed)) and all(
+                    torch.equal(a, pool.data[:, written])
+                    for a, pool in zip(pages, (engine._k, engine._v)))
+                key = f"{family}{'_sampled' if sampled else ''}"
+                out[key] = same
+                check(same, f"{key}: the graphed step differs from the "
+                      "eager one")
+        log(f"decode tier: graphed vs eager steps bit-identical: {out}")
+        return out
+    finally:
+        for t in tables:
+            engine.allocator.free(t)
+
+
+def _drain_resume(src, dst, prompts, samplings, max_new):
+    """Greedy and sampled requests streaming on `src`; drain(timeout=0)
+    once DRAIN_AFTER tokens are out; every unfinished request hands off
+    and `admit_resumed` on `dst` finishes it. Returns (handed-off
+    records, per-request delivered + resumed streams)."""
+    from mxnet_tpu_torch.decoding import RequestHandedOff
+
+    n = len(prompts)
+    delivered, states, errors = [[] for _ in range(n)], [None] * n, []
+
+    def run(i):
+        try:
+            for tok in src.stream(prompts[i], max_new_tokens=max_new,
+                                  timeout=600, sampling=samplings[i]):
+                delivered[i].append(tok)
+        except RequestHandedOff as e:
+            states[i] = e.state
+        except Exception as e:  # reported below, fails the phase
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(n)]
+    for th in threads:
+        th.start()
+    t_end = time.perf_counter() + 300
+    while (sum(map(len, delivered)) < DRAIN_AFTER
+           and any(th.is_alive() for th in threads)
+           and time.perf_counter() < t_end):
+        time.sleep(0.005)
+    records = src.drain(timeout=0)
+    for th in threads:
+        th.join(120)
+    check(not errors, "; ".join(errors))
+    handed = [i for i in range(n) if states[i] is not None]
+    check(len(records) == len(handed) > 0,
+          f"{len(records)} handoff records for {len(handed)} handed-off "
+          "requests")
+    full = []
+    for i in range(n):
+        if states[i] is None:
+            full.append(delivered[i])
+            continue
+        check(states[i]["generated"] == delivered[i],
+              f"request {i}: record's tokens are not the delivered ones")
+        fut = dst.admit_resumed(states[i])
+        full.append(delivered[i] + list(fut.stream(timeout=600)))
+    return records, full
+
+
+def phase_decode_tier(torch, decoder, cfg, serving, hot, cold_model):
+    """Phase 14 (module docstring): the decode tier at the docs/serving.md
+    width on the graphed step."""
+    from mxnet_tpu_torch import decoding as dec
+    from mxnet_tpu_torch.decoding import attention
+    from mxnet_tpu_torch.decoding import sampling as samp
+
+    prompts, cold = serving["prompts"], serving["cold"]
+    max_new = 64
+    n = len(prompts)
+    sps = _samplings(n)
+    res, parts = {}, {}
+    quiet = cold_model.engine     # the near-tie oracle: idle between runs
+    kw = dict(max_batch=8, num_pages=1024, kv_dtype="float32",
+              device=DECODE_DEVICE)
+
+    def part(name, t0):
+        parts[name] = time.perf_counter() - t0
+
+    # (b) sampled: the 1024-page pool, the same requests one at a time,
+    # a pool small enough to preempt, and the noise against the host's
+    t0 = time.perf_counter()
+    s_big, ttft, wall = _serve_concurrent(cold_model, prompts, max_new, sps)
+    snap = cold_model.stats.snapshot()
+    res["sampled"] = {"tokens_per_s": sum(map(len, s_big)) / wall,
+                      "ttft_p50_s": float(np.median(ttft)),
+                      "p50_token_ms": snap["p50_token_ms"],
+                      "p95_token_ms": snap["p95_token_ms"]}
+    alone = [cold_model.generate(x, max_new_tokens=max_new, timeout=600,
+                                 sampling=sp) for x, sp in zip(prompts, sps)]
+    check(cold_model.stats.snapshot()["traces_since_warmup"] == 0,
+          "sampled serving captured a graph after warmup")
+    small = dec.DecodedModel("lm-small", 1, decoder, cfg,
+                             **dict(kw, num_pages=SMALL_POOL),
+                             prefix_cache=False)
+    s_small, _, _ = _serve_concurrent(small, prompts, max_new, sps)
+    small_snap = small.stats.snapshot()
+    check(small_snap["preemptions"] > 0, "the small pool preempted nothing")
+    check(small_snap["traces_since_warmup"] == 0,
+          "the small pool's model captured a graph after warmup")
+    res["sampled"]["preemptions_small_pool"] = small_snap["preemptions"]
+    res["sampled"]["small_vs_big"] = _divergences(
+        quiet, prompts, s_small, s_big, sps, "sampled, small pool vs 1024")
+    res["sampled"]["alone_vs_big"] = _divergences(
+        quiet, prompts, alone, s_big, sps, "sampled, alone vs concurrent")
+    seeds = torch.tensor([sp.seed for sp in sps[:8]])
+    pos = torch.tensor([len(x) for x in prompts[:8]])
+    host = samp.gumbel(samp.stream_key(seeds, pos, samp.SALT_TOKEN),
+                       cfg.vocab)
+    dev = torch.device(DECODE_DEVICE)
+    card = samp.gumbel(samp.stream_key(seeds.to(dev), pos.to(dev),
+                                       samp.SALT_TOKEN), cfg.vocab).cpu()
+    check(torch.equal(host.view(torch.int32), card.view(torch.int32)),
+          "the card's Gumbel noise differs from the host's")
+    res["sampled"]["gumbel_rows_bit_identical"] = 8
+    log("decode tier: sampled " + json.dumps(
+        {k: v for k, v in res["sampled"].items()
+         if k not in ("small_vs_big", "alone_vs_big")}))
+    part("sampled", t0)
+
+    # (e) drain and resume: greedy and sampled requests on the small
+    # pool's model, handed off mid-decode and finished on the 1024 one
+    t0 = time.perf_counter()
+    d_prompts = prompts + prompts
+    d_samp = [None] * n + sps
+    records, full = _drain_resume(small, cold_model, d_prompts, d_samp,
+                                  max_new)
+    res["drain"] = {"handed_off": len(records),
+                    "with_tokens": sum(1 for r in records if r["generated"]),
+                    "divergences": _divergences(
+                        quiet, d_prompts, full, cold + s_big, d_samp,
+                        "drain + resume vs uninterrupted")}
+    small.close()
+    del small
+    part("drain", t0)
+
+    # (c) speculative, K = 4: a self-draft, then a real draft
+    t0 = time.perf_counter()
+    res["spec"] = {}
+    draft_cfg = dec.DecoderConfig(**DRAFT_CFG)
+    draft = dec.params_from_jax(dec.init_decoder_params(draft_cfg, seed=1),
+                                draft_cfg, torch.device(DECODE_DEVICE))
+    for name, spec_kw in (("self", dict(draft="self")),
+                          ("real", dict(draft=draft, draft_cfg=draft_cfg))):
+        t1 = time.perf_counter()
+        model = dec.DecodedModel(f"lm-spec-{name}", 1, decoder, cfg, **kw,
+                                 prefix_cache=False, spec_k=SPEC_K,
+                                 **spec_kw)
+        warm = time.perf_counter() - t1
+        dlayers = model.engine.draft_cfg.n_layers
+        if name == "self":
+            res["graph_vs_eager"] = _graph_vs_eager(torch, model.engine,
+                                                    prompts)
+        attention.reset_launch_counts()
+        streams, ttft, wall = _serve_concurrent(model, prompts, max_new)
+        launches = attention.launch_counts()["paged_attention_float"]
+        snap = model.stats.snapshot()
+        check(launches == SPEC_K * dlayers * snap["steps"],
+              f"spec {name}: B4 launches {launches} != K x draft layers x "
+              f"steps {SPEC_K} x {dlayers} x {snap['steps']}")
+        check(snap["traces_since_warmup"] == 0,
+              f"spec {name}: a graph was captured after warmup")
+        row = {"warmup_s": warm, "captures": model.engine.traces(),
+               "acceptance": snap["spec_acceptance_rate"],
+               # gate (v) of ci/check_decode.py: accepted drafts over
+               # target steps; and tokens emitted over target steps
+               "accepted_per_target_step": snap["spec_accepted"]
+               / snap["steps"],
+               "tokens_per_target_step": snap["tokens_per_target_step"],
+               "b4_launches": launches, "steps": snap["steps"],
+               "b4_launches_per_step": launches / snap["steps"],
+               "tokens_per_s": sum(map(len, streams)) / wall,
+               "ttft_p50_s": float(np.median(ttft)),
+               "p50_token_ms": snap["p50_token_ms"],
+               "p95_token_ms": snap["p95_token_ms"],
+               "vs_target_only": _divergences(
+                   quiet, prompts, streams, cold, None,
+                   f"speculative {name}-draft greedy vs target-only")}
+        if name == "self":
+            check(row["accepted_per_target_step"] > 1.5,
+                  f"self-draft: {row['accepted_per_target_step']} accepted "
+                  "tokens a target step, not > 1.5")
+            s_spec, _, _ = _serve_concurrent(model, prompts, max_new, sps)
+            snap = model.stats.snapshot()
+            check(snap["failed"] == 0 and all(s_spec),
+                  "sampled self-draft requests did not finish")
+            check(snap["traces_since_warmup"] == 0,
+                  "sampled self-draft captured a graph after warmup")
+            row["sampled_tokens"] = sum(map(len, s_spec))
+        res["spec"][name] = row
+        log(f"decode tier: spec {name}-draft " + json.dumps(
+            {k: v for k, v in row.items() if k != "vs_target_only"}))
+        model.close()
+        del model
+        _empty_cache(torch, DECODE_DEVICE)
+    del draft
+    part("speculative", t0)
+
+    # (d) the split grid: prefix cache on, merged step off
+    t0 = time.perf_counter()
+    split = dec.DecodedModel("lm-split", 1, decoder, cfg, **kw,
+                             prefix_cache=True, merged_step=False)
+    check(not split.engine.merged_step_enabled, "the split grid is off")
+    streams, _, _ = _serve_concurrent(split, prompts, max_new)
+    snap = split.stats.snapshot()
+    check(snap["prefix_hits"] > 0, "split grid: no prefix-cache hit")
+    check(snap["traces_since_warmup"] == 0,
+          "split grid: a call outside the warmed grid")
+    res["split"] = {"prefix_hits": snap["prefix_hits"],
+                    "pages_reused": snap["prefix_pages_reused"],
+                    "vs_cold": _divergences(quiet, prompts, streams, cold,
+                                            None, "split-grid hits vs cold"),
+                    "vs_merged": sum(a == b for a, b in zip(streams, hot))}
+    split.close()
+    del split
+    cold_model.close()
+    _empty_cache(torch, DECODE_DEVICE)
+    part("split", t0)
+    res["parts_s"] = parts
+    log("phase 14 ok: the decode tier at full width")
     return res
 
 
@@ -3566,7 +3982,7 @@ def _rtc_line(rtc_res):
 
 
 # -------------------------------------------------------------- main
-def _kernel_line(rows, launches_float, launches_int8):
+def _kernel_line(rows, launches_float, launches_int8, spec_launches):
     def pick(kv):
         return next(r for r in rows if r["kv"] == kv and r["bp"] == 128)
 
@@ -3587,6 +4003,8 @@ def _kernel_line(rows, launches_float, launches_int8):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    # phase 14's speculative runs: the draft's K steps a target step
+    out[0]["launches_speculative"] = spec_launches
     return out
 
 
@@ -3647,9 +4065,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="also run torch.profiler over a serving window "
-                    "(phase 3) and a training step (phases 6 and 9) and "
-                    "print where the device time goes")
+                    help="also run torch.profiler over a training step "
+                    "(phases 6 and 9) and print where the device time "
+                    "goes (phase 3's serving window is profiled in every "
+                    "run)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -3686,10 +4105,13 @@ def main():
                                   cfg, torch.device("cuda")).eval()
     log(f"weights: {sum(p.numel() for p in decoder.parameters())} "
         f"parameters in {time.perf_counter() - t!r} s")
-    serving = run("serving", lambda: phase_serving(
-        torch, decoder, cfg, "cuda", profile=args.profile)[0])
+    run("serving", phase_serving, torch, decoder, cfg, "cuda")
+    serving, hot, cold_model = report["serving"]
+    report["serving"] = serving
     kv = run("kv_dtypes", phase_kv_dtypes, torch, decoder, cfg, "cuda")
-    del decoder
+    tier = run("decode_tier", phase_decode_tier, torch, decoder, cfg,
+               serving, hot, cold_model)
+    del decoder, cold_model
     torch.cuda.empty_cache()
     codegen = run("codegen", phase_codegen, torch, mx)
     training, groups, trained = run("training", phase_training, torch, mx,
@@ -3710,13 +4132,47 @@ def main():
 
     line = {"kernels": _kernel_line(
         rows, serving["launches"]["paged_attention_float"],
-        kv["int8"]["launches"]["paged_attention_int8"])
+        kv["int8"]["launches"]["paged_attention_int8"],
+        {k: r["b4_launches"] for k, r in tier["spec"].items()})
         + _codegen_line(codegen["rows"], train_rows, training["launches"],
                         codegen["launches"])
         + _flash_line(attn) + _rtc_line(rtc_res) + _vision_line(vision)}
     report["kernels"] = line["kernels"]
     report["phase_s"]["total"] = time.perf_counter() - t_start
     log("surface: " + json.dumps(surface["summary"]))
+    prof = serving["profile"]
+    log("decode: " + json.dumps({
+        "greedy": {"tokens_per_s": serving["e2e_tokens_per_s"],
+                   "ttft_p50_s": float(np.median(serving["ttft_s"])),
+                   "p50_token_ms": serving["stats"]["p50_token_ms"],
+                   "p95_token_ms": serving["stats"]["p95_token_ms"]},
+        "sampled": {k: tier["sampled"][k] for k in (
+            "tokens_per_s", "ttft_p50_s", "p50_token_ms", "p95_token_ms",
+            "preemptions_small_pool")},
+        "speculative": {name: {k: r[k] for k in (
+            "tokens_per_s", "ttft_p50_s", "p50_token_ms", "p95_token_ms",
+            "acceptance", "accepted_per_target_step",
+            "tokens_per_target_step", "b4_launches_per_step", "captures")}
+            for name, r in tier["spec"].items()},
+        "captures": serving["captures"],
+        "window_wall_us": prof["wall_us"],
+        "window_device_us": prof["device_us"],
+        "window_prefill_us": prof["prefill_us"],
+        "window_steps_us": prof["steps_us"],
+        "busy_share": prof["busy_share"],
+        "busy_share_eager_pr6": "0.133 (PERF.md section 5, PR 6's call 8)",
+        "graph_vs_eager": tier["graph_vs_eager"],
+        "divergences": {
+            "sampled_small_pool": len(tier["sampled"]["small_vs_big"]),
+            "sampled_alone": len(tier["sampled"]["alone_vs_big"]),
+            "drain_resume": len(tier["drain"]["divergences"]),
+            "spec_self": len(tier["spec"]["self"]["vs_target_only"]),
+            "spec_real": len(tier["spec"]["real"]["vs_target_only"]),
+            "split_grid": len(tier["split"]["vs_cold"])},
+        "handed_off": tier["drain"]["handed_off"],
+        "split_prefix_hits": tier["split"]["prefix_hits"],
+        "phase_s": report["phase_s"]["decode_tier"],
+        "parts_s": tier["parts_s"], "card": card}))
     log("lm: " + json.dumps({
         k: lm[k] for k in ("params", "cold_bind_s", "step_ms_p50",
                            "step_ms_p95", "tokens_per_s", "peak_mem_bytes",

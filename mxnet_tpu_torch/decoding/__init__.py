@@ -5,17 +5,26 @@ paged-attention kernel for Hopper.
   blocks     free-list page allocator + per-sequence page tables with
              refcounts (prefix sharing, copy-on-write fork)
   attention  paged attention: the CUDA kernel (csrc/paged_attention.cu)
-             for CUDA tensors, the plain gather version for CPU tensors
-  model      the decoder contract: reference / prefill / decode-step
-             forwards over one `Decoder` module
-  engine     DecodeEngine — owns the device page pool and the fixed
-             grid of call shapes (zero steady-state traces)
+             for CUDA tensors, the plain gather version for CPU
+             tensors; and the multi-query path (plain torch, as the JAX
+             package's) of tail prefill and speculative verify
+  model      the decoder contract: reference / prefill / tail-prefill /
+             decode-step forwards over one `Decoder` module
+  engine     DecodeEngine — owns the device page pools and the fixed
+             grid of call shapes (zero steady-state traces); on CUDA
+             each step cell replays a captured CUDA graph
   scheduler  ContinuousScheduler + DecodedModel — per-step admission,
-             eviction, priority preemption, streaming DecodeFuture
+             eviction, priority preemption, streaming DecodeFuture,
+             drain and hand-off (RequestHandedOff, admit_resumed)
   prefix     PrefixCache — radix index over cached prompt KV pages
   quant      precision-polymorphic page pools (float32 | bf16 | int8
              with per-(page, slot, head) scale planes)
-  sampling   SamplingParams and the greedy choice
+  sampling   SamplingParams + the (seed, position, salt) counter
+             streams: temperature/top-k/top-p inside the step, the JAX
+             package's Gumbel noise bit for bit
+  speculative draft-proposes-K / target-verifies-K+1 forwards over the
+             same page tables (distribution-identical output, exact
+             under greedy)
   stats      DecodeStats and the decoding_stats() snapshot
 
     from mxnet_tpu_torch import decoding as dec
@@ -26,9 +35,10 @@ paged-attention kernel for Hopper.
     for tok in model.stream(prompt_ids, max_new_tokens=64): ...
 """
 from . import attention, blocks, config, engine, model, prefix, quant, \
-    sampling, scheduler, stats
-from .attention import paged_attention, paged_attention_plain, \
-    ragged_paged_attention
+    sampling, scheduler, speculative, stats
+from .attention import (get_multi_kernel, paged_attention,
+                        paged_attention_multi, paged_attention_plain,
+                        ragged_paged_attention)
 from .blocks import (SCRATCH_PAGE, BlockAllocator, PageError,
                      PagePoolExhausted, pages_needed)
 from .engine import DecodeEngine, quant_parity_probe
@@ -38,17 +48,19 @@ from .prefix import PrefixCache, page_digests
 from .quant import KVPool
 from .sampling import SamplingParams
 from .scheduler import (ContinuousScheduler, DecodeFuture, DecodedModel,
-                        TokenStream)
-from .stats import DecodeStats, decoding_stats
+                        RequestHandedOff, TokenStream)
+from .stats import DecodeStats, decoding_stats, reset_decoding_stats
 
 __all__ = [
     "BlockAllocator", "ContinuousScheduler", "DecodeEngine",
     "DecodeFuture", "DecodeStats", "DecodedModel", "Decoder",
     "DecoderConfig", "KVPool", "PageError", "PagePoolExhausted",
-    "PrefixCache", "SCRATCH_PAGE", "SamplingParams", "TokenStream",
-    "attention", "blocks", "config", "decoding_stats", "engine",
-    "init_decoder_params", "model", "page_digests", "paged_attention",
+    "PrefixCache", "RequestHandedOff", "SCRATCH_PAGE", "SamplingParams",
+    "TokenStream", "attention", "blocks", "config", "decoding_stats",
+    "engine", "get_multi_kernel", "init_decoder_params", "model",
+    "page_digests", "paged_attention", "paged_attention_multi",
     "paged_attention_plain", "pages_needed", "params_from_jax", "prefix",
     "quant", "quant_parity_probe", "ragged_paged_attention",
-    "reference_logits", "sampling", "scheduler", "stats",
+    "reference_logits", "reset_decoding_stats", "sampling", "scheduler",
+    "speculative", "stats",
 ]

@@ -38,14 +38,26 @@ decode row passes its full context length, a tail-prefill row passes
 `position + 1` of the prompt token it processes, and per-row length
 masking does the rest, so both kinds of rows share one kernel.
 
+`paged_attention_multi` is the multi-query path of the split-grid tail
+prefill and of the speculative verify step: S queries a row, each masked
+by its own absolute position. The JAX package computes it with lax ops
+and no Pallas body (both of its kernel names resolve to that one
+function), so here it is plain PyTorch on every device, not a kernel's
+plain version; `get_multi_kernel` returns it.
+
 Each CUDA entry point counts its calls in a plain integer attribute
 (`paged_attention_float_cuda.launches`,
 `paged_attention_int8_cuda.launches`): one per attention call, whether
 it took one CUDA launch (Bp <= CHUNK_PAGES) or two (split and merge), so
-a run can show that its main path went through the kernel.
+a run can show that its main path went through the kernel. A call made
+while its stream is capturing a CUDA graph launches nothing then: it is
+noted in the capture's record (`recording_launches`), and the graph's
+owner credits that record at each replay (`credit_launches`), when the
+kernel does launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -109,6 +121,55 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, lengths,
     w = e / e.sum(dim=-1, keepdim=True)
     out = torch.einsum("bht,bthd->bhd", w, v_ctx)
     return out.to(q.dtype)
+
+
+def paged_attention_multi(q, k_pages, v_pages, page_table, q_positions,
+                          scale=None):
+    """Multi-query variant: S queries per row over the same paged
+    context, each masked by its OWN absolute position.
+
+      q            (B, S, H, D)   queries (tail prefill / verify)
+      q_positions  (B, S) int     absolute position of each query;
+                                  query j attends context positions
+                                  <= q_positions[b, j]
+
+    Gathers the table's pages into a (B, Bp*P, H, D) context
+    (dequantizing int8 pages), applies the per-query causal mask and
+    takes a float32 softmax. Shapes are a function of (B, S, pages
+    bucket) only."""
+    k_pages = _quant.as_pool(k_pages)
+    v_pages = _quant.as_pool(v_pages)
+    b, s, h, d = q.shape
+    _, p, hh, dd = k_pages.shape
+    if (hh, dd) != (h, d):
+        raise ValueError(
+            f"pool heads/dim {(hh, dd)} != query {(h, d)}")
+    if page_table.shape[0] != b or tuple(q_positions.shape) != (b, s):
+        raise ValueError("page_table/q_positions batch mismatch")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    t = page_table.shape[1] * p
+    k_ctx = _quant.gather_ctx(k_pages, page_table).reshape(b, t, h, d)
+    v_ctx = _quant.gather_ctx(v_pages, page_table).reshape(b, t, h, d)
+    sc = torch.einsum("bshd,bthd->bhst", q.to(torch.float32), k_ctx) * scale
+    mask = (torch.arange(t, device=q.device)[None, None, :]
+            <= q_positions[:, :, None])             # (B, S, T)
+    sc = torch.where(mask[:, None], sc, torch.full_like(sc, NEG_INF))
+    m = sc.amax(dim=-1, keepdim=True)
+    e = torch.exp(sc - m)
+    w = e / e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhst,bthd->bshd", w, v_ctx)
+    return out.to(q.dtype)
+
+
+def get_multi_kernel(name=None):
+    """The multi-query implementation (`paged_attention_multi`). The
+    JAX package resolves MXNET_DECODE_KERNEL here; both of its choices
+    name one lax function, and so does every name here."""
+    if name not in (None, "lax", "pallas"):
+        raise ValueError(f"unknown decode kernel {name!r} "
+                         "(choices: ['lax', 'pallas'])")
+    return paged_attention_multi
 
 
 def paged_attention_chunked_plain(q, k_pages, v_pages, page_table, lengths,
@@ -334,13 +395,23 @@ def _launch(name, q, k_pages, v_pages, page_table, lengths, quantized):
     return out
 
 
+_recording = None     # {entry: calls} of the graph being captured
+
+
+def _count(entry, name):
+    if _recording is not None and torch.cuda.is_current_stream_capturing():
+        _recording[name] = _recording.get(name, 0) + 1
+    else:
+        entry.launches += 1
+
+
 def paged_attention_float_cuda(q, k_pages, v_pages, page_table, lengths):
     """Launch the float32/bfloat16-page kernel on CUDA tensors. Counts
     one call in `launches` whatever the number of CUDA launches."""
     out = _launch("paged_attention_float", q, k_pages, v_pages, page_table,
                   lengths, False)
     if out.shape[0]:
-        paged_attention_float_cuda.launches += 1
+        _count(paged_attention_float_cuda, "paged_attention_float")
     return out
 
 
@@ -353,11 +424,34 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, page_table, lengths):
     out = _launch("paged_attention_int8", q, k_pages, v_pages, page_table,
                   lengths, True)
     if out.shape[0]:
-        paged_attention_int8_cuda.launches += 1
+        _count(paged_attention_int8_cuda, "paged_attention_int8")
     return out
 
 
 paged_attention_int8_cuda.launches = 0
+_ENTRIES = {"paged_attention_float": paged_attention_float_cuda,
+            "paged_attention_int8": paged_attention_int8_cuda}
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside the block, kernel calls on a capturing stream are noted in
+    the yielded dict ({entry point: calls}) instead of `launches`: a
+    graph capture launches nothing. The graph's owner credits the dict
+    at each replay. One capture at a time (captures are serialised)."""
+    global _recording
+    saved, _recording = _recording, {}
+    try:
+        yield _recording
+    finally:
+        _recording = saved
+
+
+def credit_launches(record):
+    """Count the kernel calls a replayed graph made (its capture's
+    record)."""
+    for name, n in record.items():
+        _ENTRIES[name].launches += n
 
 
 # ----------------------------------------------------------- entry points

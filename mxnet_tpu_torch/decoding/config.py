@@ -52,6 +52,10 @@ def prefix_cache():
     return bool(utils.getenv("MXNET_DECODE_PREFIX_CACHE"))
 
 
+def spec_k():
+    return utils.getenv("MXNET_DECODE_SPEC_K")
+
+
 def spec_draft():
     return utils.getenv("MXNET_DECODE_SPEC_DRAFT")
 

@@ -1,18 +1,25 @@
 """A minimal autoregressive decoder with paged-KV decode semantics.
 
 The decode tier needs a model contract: an embedding, a stack of
-attention+MLP blocks, and tied-logits output, expressed as three
-functions over one `Decoder` module —
+attention+MLP blocks, and tied-logits output, expressed as functions
+over one `Decoder` module —
 
-  reference_logits   dense causal forward over a whole (B, T) buffer
-                     (the unbatched reference of the parity tests)
-  prefill_forward    dense causal forward over a padded prompt that
-                     also scatters per-layer K/V into the paged pool
-                     and returns the first generated token
-  decode_forward     one fixed-shape decode step: embed the last token
-                     of every row, append its K/V to the pool through
-                     the page table, attend over the pages, return each
-                     row's next greedy token
+  reference_logits      dense causal forward over a whole (B, T) buffer
+                        (the unbatched reference of the parity tests)
+  prefill_forward       dense causal forward over a padded prompt that
+                        also scatters per-layer K/V into the paged pool
+                        and returns the first generated token
+  tail_prefill_forward  the prompt pass of a prefix-cache hit: only the
+                        uncached tail runs, its queries attending over
+                        the shared pages through the multi-query path
+  decode_forward        one fixed-shape decode step: embed the last
+                        token of every row, append its K/V to the pool
+                        through the page table, attend over the pages,
+                        return each row's next token
+
+Each returns a greedy token, or, given sampling parameters, the token
+drawn on the row's (seed, position) stream (decoding/sampling.py): the
+first token at position `length`, each decode token at `lengths + 1`.
 
 The JAX package expresses these as pure functions of a flat {name:
 array} dict under jit with the pools donated. Here the weights live in
@@ -33,6 +40,7 @@ import torch
 from torch import nn
 
 from . import quant as _quant
+from . import sampling as _sampling
 from .blocks import SCRATCH_PAGE
 from .sampling import greedy_tokens
 
@@ -212,9 +220,27 @@ def reference_logits(model, tokens, cfg):
     return x @ model.embed.T
 
 
+# -------------------------------------------------------------- sampling
+def _pick_token(logits, seed, position, temperature, top_k, top_p):
+    """Single-position token choice: greedy argmax when no sampling
+    params were threaded through (seed None), else the counter-keyed
+    sampler (sampling.sample_token) on the logits' device."""
+    if seed is None:
+        return greedy_tokens(logits)
+
+    def dev(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=logits.device)
+
+    return _sampling.sample_token(
+        logits, dev(seed, torch.int64), dev(position, torch.int64),
+        dev(temperature, torch.float32), dev(top_k, torch.int64),
+        dev(top_p, torch.float32))
+
+
 # --------------------------------------------------------------- prefill
 @torch.no_grad()
 def prefill_forward(model, tokens, length, k_pages, v_pages, page_ids,
+                    seed=None, temperature=None, top_k=None, top_p=None,
                     *, cfg):
     """Prompt pass: tokens (1, Tb) padded to a length bucket, `length`
     (int) the true prompt length, page_ids (ceil(Tb/P),) the sequence's
@@ -222,7 +248,9 @@ def prefill_forward(model, tokens, length, k_pages, v_pages, page_ids,
 
     Scatters every layer's K/V for positions < length into the pools
     in place (positions >= length land in the scratch page) and
-    returns the greedy first token as a device scalar."""
+    returns the first token as a device scalar: sampled on the (seed,
+    position=length) stream when sampling params are given, greedy
+    otherwise."""
     scale = 1.0 / math.sqrt(cfg.head_dim)
     k_pages = _quant.as_pool(k_pages)
     v_pages = _quant.as_pool(v_pages)
@@ -243,7 +271,54 @@ def prefill_forward(model, tokens, length, k_pages, v_pages, page_ids,
         x = x + o.reshape(1, t, cfg.d_model) @ layer.wo
         x = x + _mlp(layer, _rms(x, layer.ln2))
     last = _rms(x[0, length - 1], model.ln_f)
-    return greedy_tokens(last @ model.embed.T)
+    return _pick_token(last @ model.embed.T, seed, length, temperature,
+                       top_k, top_p)
+
+
+# ---------------------------------------------------- prefix-cache tail
+@torch.no_grad()
+def tail_prefill_forward(model, tokens, start, length, k_pages, v_pages,
+                         page_ids, seed=None, temperature=None, top_k=None,
+                         top_p=None, *, cfg, attn_multi):
+    """Tail-only prompt pass for a prefix-cache hit: positions [0,
+    start) already live in shared pages (K/V is a pure function of the
+    token prefix), so only the tail [start, length) is computed here.
+
+    tokens (1, Tb) holds the TAIL tokens padded to a length bucket;
+    start/length are ints (absolute); page_ids covers the FULL table
+    padded to the engine's largest bucket. Each layer scatters the tail
+    K/V into its pages and attends the tail queries over the context
+    gathered from the pages (shared prefix + just-written tail) with
+    per-query causal masks through `attn_multi`. Returns the first
+    token as `prefill_forward` does."""
+    k_pages = _quant.as_pool(k_pages)
+    v_pages = _quant.as_pool(v_pages)
+    page_size = k_pages.page_size
+    tokens = tokens.long()
+    page_ids = page_ids.long()
+    _, t = tokens.shape
+    cap = page_ids.shape[0] * page_size
+    pos = start + torch.arange(t, device=tokens.device)     # absolute
+    valid = (pos < length) & (pos < cap)
+    col = torch.clamp(pos // page_size, 0, page_ids.shape[0] - 1)
+    tgt_pages = torch.where(valid, page_ids[col],
+                            torch.full_like(pos, SCRATCH_PAGE))
+    slots = pos % page_size
+    pos_safe = torch.clamp(pos, 0, cfg.max_len - 1)
+    table = page_ids[None].to(torch.int32)
+
+    x = model.embed[tokens] + model.pos[pos_safe][None]
+    for i, layer in enumerate(model.layers):
+        q, k, v = _qkv(layer, _rms(x, layer.ln1), cfg)
+        _quant.kv_scatter(k_pages, i, tgt_pages, slots, k[0])
+        _quant.kv_scatter(v_pages, i, tgt_pages, slots, v[0])
+        o = attn_multi(q, k_pages.layer(i), v_pages.layer(i), table,
+                       pos_safe[None])
+        x = x + o.reshape(1, t, cfg.d_model) @ layer.wo
+        x = x + _mlp(layer, _rms(x, layer.ln2))
+    last = _rms(x[0, length - 1 - start], model.ln_f)
+    return _pick_token(last @ model.embed.T, seed, length, temperature,
+                       top_k, top_p)
 
 
 # ---------------------------------------------------------------- decode
@@ -297,16 +372,24 @@ def decode_logits(model, tokens, k_pages, v_pages, page_table, lengths,
 
 @torch.no_grad()
 def decode_forward(model, tokens, k_pages, v_pages, page_table, lengths,
-                   active, *, cfg, attn, with_stats=False):
-    """One greedy decode step over the full fixed-shape batch. Returns
-    next_tokens (B,) int64 on the device; with_stats=True (the
+                   active, seeds=None, temps=None, top_ks=None,
+                   top_ps=None, *, cfg, attn, with_stats=False):
+    """One decode step over the full fixed-shape batch. With seeds /
+    temps / top_ks / top_ps (B,) device tensors the next token is drawn
+    per row on its (seed, position=lengths+1) stream (temperature 0 =
+    exact greedy); without them it is the argmax. Returns next_tokens
+    (B,) int64 on the device; with_stats=True (the
     MXNET_NUMERICS_DECODE_GUARD path) also returns a (2,) int32 device
     vector [nonfinite_rows, quant_clips]: active rows whose logits hold
     NaN/Inf, and K/V values this step's int8 writes had to clip."""
     logits, clips = decode_logits(
         model, tokens, k_pages, v_pages, page_table, lengths, active,
         cfg=cfg, attn=attn)
-    next_tokens = greedy_tokens(logits)
+    if seeds is None:
+        next_tokens = greedy_tokens(logits)
+    else:
+        next_tokens = _sampling.sample_token(
+            logits, seeds, lengths.long() + 1, temps, top_ks, top_ps)
     if not with_stats:
         return next_tokens
     bad_rows = (~torch.isfinite(logits)).any(dim=-1) & active

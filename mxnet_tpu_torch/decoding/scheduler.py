@@ -17,14 +17,27 @@ step the scheduler
 
 Preemption drops a sequence's pages but keeps its token history; on
 readmission the scheduler re-prefills prompt + generated-so-far and
-the greedy continuation picks up where it stopped.
+the continuation picks up where it stopped — including sampled runs,
+whose randomness is a pure function of (request seed, position) and so
+replays exactly.
 
-A `PrefixCache` (prefix.py) lets admission map full prompt pages
-already prefilled by live or recently-finished sequences instead of
-recomputing them; the uncached prompt tail rides the next decode
-step(s) as extra ragged rows (the merged step). Cached-but-unreferenced
-pages are evicted LRU under pool pressure BEFORE any live sequence is
-preempted.
+Two work-avoidance layers ride the same loop:
+
+  * a `PrefixCache` (prefix.py) lets admission map full prompt pages
+    already prefilled by live or recently-finished sequences instead
+    of recomputing them; the uncached prompt tail rides the next
+    decode step(s) as extra ragged rows (the merged step), or runs
+    through the engine's tail-prefill shapes at admission (the split
+    grid). Cached-but-unreferenced pages are evicted LRU under pool
+    pressure BEFORE any live sequence is preempted.
+  * with a draft model loaded, `_step` runs the engine's speculative
+    propose+verify pair and can emit up to spec_k+1 tokens per target
+    step (speculative.py).
+
+`drain()` stops admission, lets live decodes finish for a while, then
+hands each unfinished request off: its future fails with
+RequestHandedOff carrying a JSON-ready resume record, which
+`admit_resumed` on another scheduler accepts and continues.
 
 Tokens reach callers through `DecodeFuture`: `result()` is the full
 generated list, `stream()` returns a `TokenStream` iterating tokens as
@@ -58,6 +71,22 @@ from .sampling import SamplingParams
 from .stats import DecodeStats
 
 _DONE = object()
+
+
+class RequestHandedOff(ServingError):
+    """Raised into a request's future/stream when a draining decoder
+    hands the request off instead of finishing it locally. `.state` is
+    the JSON-ready resume record (prompt, tokens generated so far,
+    sampling seed + position, remaining deadline) that `admit_resumed`
+    on any other replica accepts — under counter-based sampling the
+    continuation there is the uninterrupted run's, so a caller loses
+    nothing but a little latency."""
+
+    def __init__(self, state):
+        super().__init__(
+            "request handed off mid-decode; resume elsewhere with "
+            "admit_resumed(exc.state)")
+        self.state = state
 
 
 class DecodeFuture:
@@ -167,12 +196,12 @@ class _Sequence:
     """Scheduler-internal state of one in-flight request."""
 
     __slots__ = ("prompt", "max_new", "priority", "deadline", "future",
-                 "trace_id", "order", "generated", "table", "length",
-                 "last_token", "preempted", "t_submit_pc", "pending_tail",
-                 "tail_meta")
+                 "trace_id", "order", "sampling", "use_draft", "generated",
+                 "table", "length", "last_token", "preempted",
+                 "t_submit_pc", "pending_tail", "tail_meta")
 
     def __init__(self, prompt, max_new, priority, deadline, future,
-                 trace_id, order):
+                 trace_id, order, sampling, use_draft):
         self.prompt = list(prompt)
         self.max_new = max_new
         self.priority = priority
@@ -180,6 +209,8 @@ class _Sequence:
         self.future = future
         self.trace_id = trace_id
         self.order = order             # admission tiebreak (FIFO)
+        self.sampling = sampling       # SamplingParams (resolved)
+        self.use_draft = use_draft     # speculative opt-in for this row
         self.generated = []
         self.table = None              # page ids while active
         self.length = 0                # tokens materialized in cache
@@ -226,6 +257,9 @@ class ContinuousScheduler:
         self._order = itertools.count()
         self._closed = False
         self._drain = True
+        self._draining = False         # drain(): admission closed
+        self._handoff = False          # leftovers hand off, not fail
+        self._handoff_states = []      # loop/backstop-thread only
         self._thread = None
 
     # ------------------------------------------------------ public API
@@ -242,18 +276,27 @@ class ContinuousScheduler:
                     sum(1 for s in self._rows if s is not None))
 
     def submit(self, prompt, max_new_tokens=None, priority=0,
-               deadline_ms=None, sampling=None, seed=None):
-        """Enqueue one greedy autoregressive request; returns a
-        DecodeFuture.
+               deadline_ms=None, sampling=None, seed=None, draft=None):
+        """Enqueue one autoregressive request; returns a DecodeFuture.
 
         `priority`: higher values survive page-pool pressure longer.
         `deadline_ms` is end-to-end and checked EVERY step. `sampling`
-        / `seed`: a SamplingParams (or None for the env defaults);
-        temperature > 0 is refused in this package.
+        / `seed`: a SamplingParams (or None for the env defaults; `seed`
+        overrides just the stream seed). Greedy (temperature <= 0)
+        needs no seed. `draft`: per-request speculative opt-in/out;
+        defaults to "on when a draft model is loaded".
         """
         prompt = [int(t) for t in prompt]
         sp = SamplingParams.resolve(sampling, seed)
         sp.validate(self.engine.cfg.vocab)
+        if draft is None:
+            use_draft = self.engine.spec_enabled
+        else:
+            use_draft = bool(draft)
+            if use_draft and not self.engine.spec_enabled:
+                raise ServingError(
+                    "speculative decoding requested but no draft model "
+                    "is loaded")
         if not prompt:
             raise ServingError("empty prompt")
         if any(t < 0 or t >= self.engine.cfg.vocab for t in prompt):
@@ -272,20 +315,125 @@ class ContinuousScheduler:
             deadline = (time.monotonic() + deadline_ms / 1e3
                         if deadline_ms is not None else None)
             fut = DecodeFuture(tid)
-            with self._cond:
-                if self._closed:
-                    raise ServerClosedError("decoder is shut down")
-                if len(self._waiting) >= self.queue_cap:
-                    self.stats.note_rejected()
-                    raise ServerBusyError(
-                        f"decode queue full ({self.queue_cap}); "
-                        "retry with backoff")
-                seq = _Sequence(prompt, max_new, int(priority),
-                                deadline, fut, tid, next(self._order))
-                self._waiting.append(seq)
-                self._cond.notify()
-        self.stats.note_submitted()
+            self._enqueue(lambda order: _Sequence(
+                prompt, max_new, int(priority), deadline, fut, tid, order,
+                sp, use_draft))
         return fut
+
+    def _enqueue(self, make_seq):
+        """Queue the sequence `make_seq(order)` builds, unless admission
+        is closed or the queue is full."""
+        with self._cond:
+            if self._closed or self._draining:
+                raise ServerClosedError("decoder is shut down")
+            if len(self._waiting) >= self.queue_cap:
+                self.stats.note_rejected()
+                raise ServerBusyError(
+                    f"decode queue full ({self.queue_cap}); "
+                    "retry with backoff")
+            self._waiting.append(make_seq(next(self._order)))
+            self._cond.notify()
+        self.stats.note_submitted()
+
+    def admit_resumed(self, state):
+        """Admit a request handed off by another scheduler's `drain()`.
+        The resumed future's STREAM emits only NEW tokens — everything
+        in state["generated"] was already delivered by the original
+        replica — while `result()` returns the full list. Counter-based
+        sampling (the token at position P is a pure function of the
+        request seed and P) makes the continuation the uninterrupted
+        run's; internally this rides the readmission path preemption
+        uses."""
+        prompt = [int(t) for t in state["prompt"]]
+        generated = [int(t) for t in state.get("generated", ())]
+        sp = SamplingParams.resolve(state.get("sampling"), None)
+        sp.validate(self.engine.cfg.vocab)
+        max_new = int(state["max_new_tokens"])
+        if not prompt:
+            raise ServingError("empty prompt in resume state")
+        if any(t < 0 or t >= self.engine.cfg.vocab
+               for t in prompt + generated):
+            raise ServingError("resume state token outside vocab")
+        if len(generated) >= max_new:
+            raise ServingError(
+                "resume state is already at max_new_tokens; nothing "
+                "left to decode")
+        if len(prompt) + len(generated) > self.engine.max_context:
+            raise ServingError(
+                "resume state exceeds the decode context capacity "
+                f"{self.engine.max_context}")
+        use_draft = bool(state.get("draft")) and self.engine.spec_enabled
+        deadline_ms = state.get("deadline_ms")
+        deadline = (time.monotonic() + float(deadline_ms) / 1e3
+                    if deadline_ms is not None else None)
+        tid = _trace.new_trace_id()
+        fut = DecodeFuture(tid)
+
+        def make_seq(order):
+            seq = _Sequence(prompt, max_new, int(state.get("priority", 0)),
+                            deadline, fut, tid, order, sp, use_draft)
+            seq.generated = generated
+            if generated:
+                # the preemption-readmission contract: _admit restores
+                # last_token without re-emitting the replayed token
+                seq.preempted = True
+                seq.last_token = generated[-1]
+            return seq
+
+        self._enqueue(make_seq)
+        return fut
+
+    def _handoff_state(self, seq, now=None):
+        """JSON-ready resume record for one unfinished sequence (the
+        payload of RequestHandedOff / input of admit_resumed)."""
+        sp = seq.sampling
+        st = {
+            "prompt": list(seq.prompt),
+            "generated": list(seq.generated),
+            "max_new_tokens": seq.max_new,
+            "priority": seq.priority,
+            "position": len(seq.generated),
+            "draft": bool(seq.use_draft),
+            "sampling": {"temperature": sp.temperature,
+                         "top_k": sp.top_k, "top_p": sp.top_p,
+                         "seed": sp.seed},
+        }
+        if seq.deadline is not None:
+            if now is None:
+                now = time.monotonic()
+            st["deadline_ms"] = max(0.0, (seq.deadline - now) * 1e3)
+        return st
+
+    def drain(self, timeout=30):
+        """Graceful shutdown with zero request loss: stop admitting, let
+        live decodes run to completion for up to `timeout` seconds, then
+        hand off whatever is still unfinished — each leftover future
+        resolves with RequestHandedOff carrying the resume record, and
+        the list of records is returned so a control plane can re-admit
+        them elsewhere. With timeout=0 everything in flight hands off
+        immediately."""
+        deadline = time.monotonic() + max(0.0, float(timeout))
+        with self._cond:
+            self._draining = True
+            self._cond.notify_all()
+        while time.monotonic() < deadline:
+            with self._cond:
+                busy = bool(self._waiting) or any(
+                    s is not None for s in self._rows)
+            if not busy:
+                break
+            time.sleep(0.01)        # poll outside the lock
+        with self._cond:
+            self._closed = True
+            self._drain = False
+            self._handoff = True
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        self._fail_leftovers()
+        if self.cache is not None:
+            self.cache.release_all()
+        return [dict(st) for st in self._handoff_states]
 
     def stop(self, drain=True, timeout=30):
         """Close admission; drain=True finishes in-flight sequences,
@@ -305,19 +453,30 @@ class ContinuousScheduler:
     def _fail_leftovers(self):
         """Backstop against stranded futures: if the loop thread is
         down, any request still queued or rowed would otherwise wait
-        forever; fail them with ServerClosedError. No-op while the loop
-        is alive (it owns the sweep then)."""
+        forever. Sweep them into a terminal state — handoff records when
+        draining, a ServerClosedError otherwise. No-op while the loop is
+        alive (it owns the sweep then)."""
         if self._thread is not None and self._thread.is_alive():
             return
         with self._cond:
             leftovers = self._waiting[:]
             self._waiting.clear()
             leftovers.extend(s for s in self._rows if s is not None)
+            handoff = self._handoff
         for s in leftovers:
             if s.future.done():
                 continue
-            self.stats.note_failed()
-            self._resolve(s, exc=ServerClosedError("decoder stopped"))
+            if handoff:
+                self._hand_off(s)
+            else:
+                self.stats.note_failed()
+                self._resolve(s, exc=ServerClosedError("decoder stopped"))
+
+    def _hand_off(self, seq, now=None):
+        st = self._handoff_state(seq, now)
+        self._handoff_states.append(st)
+        self.stats.note_cancelled()
+        self._resolve(seq, exc=RequestHandedOff(st))
 
     # ---------------------------------------------------- loop helpers
     def _active(self):
@@ -493,6 +652,7 @@ class ContinuousScheduler:
             if self.cache is not None:
                 matched, start = self.cache.match(
                     tokens, (len(tokens) - 1) // P)
+                self.stats.note_prefix_reuse(len(matched))
             need = need_total - len(matched)
             ok = True
             while alloc.free_pages() < need:
@@ -512,7 +672,7 @@ class ContinuousScheduler:
                 row = self._rows.index(None)
                 self._rows[row] = seq
             t0 = _trace.now()
-            if start:
+            if start and self.engine.merged_step_enabled:
                 # merged-step deferral: the uncached tail rides the
                 # next decode step(s) as ragged rows (_grow plans the
                 # chunks, _step packs them); length stays at the cached
@@ -522,15 +682,19 @@ class ContinuousScheduler:
                 seq.tail_meta = (t0, len(tokens), start, need_total,
                                  len(matched))
                 continue
-            first = self.engine.prefill(tokens, seq.table)
+            sp = seq.sampling
+            first = self.engine.prefill(
+                tokens, seq.table, start=start, seed=sp.seed,
+                temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p)
             dt = _trace.now() - t0
-            self.stats.note_prefill(len(tokens), dt,
+            self.stats.note_prefill(len(tokens) - start, dt,
                                     readmission=seq.preempted)
             _trace.record_span(
                 "decoding.prefill", seq.trace_id, t0, t0 + dt,
                 {"model": self.key, "tokens": len(tokens),
-                 "cached_tokens": 0, "pages": need_total,
-                 "pages_reused": 0, "readmission": seq.preempted})
+                 "cached_tokens": start, "pages": need_total,
+                 "pages_reused": len(matched),
+                 "readmission": seq.preempted})
             seq.length = len(tokens)
             if self.cache is not None:
                 # publish this prompt's full pages (existing runs keep
@@ -541,8 +705,9 @@ class ContinuousScheduler:
                                       seq.table[:n_full])
             was_preempted, seq.preempted = seq.preempted, False
             if was_preempted and seq.generated:
-                # the re-prefill reproduces the token already emitted;
-                # restore, don't re-emit
+                # the re-prefill reproduces the token already emitted
+                # (sampled streams are (seed, position)-pure); restore,
+                # don't re-emit
                 seq.last_token = seq.generated[-1]
             else:
                 self._handle_token(seq, int(first))
@@ -584,17 +749,21 @@ class ContinuousScheduler:
         return seq.table is not None and len(seq.table) >= need
 
     def _grow(self):
-        """Before each step, back every live row's write position with
-        an exclusively-owned page, and plan this step's merged tail
-        rows: split the tail_budget extra rows across sequences still
-        holding a pending prompt tail, sizing each one's page table for
-        the chunk it will write."""
+        """Before each step, back every live row's WHOLE write range —
+        positions length..length+K, K = spec_k in speculative mode, else
+        0 — with exclusively-owned pages (rejected speculative entries
+        land in owned pages, so rollback by truncation never corrupts a
+        shared page), and plan this step's merged tail rows: split the
+        tail_budget extra rows across sequences still holding a pending
+        prompt tail, sizing each one's page table for the chunk it will
+        write."""
         P = self.engine.page_size
         cap = self.engine.max_context
+        k = self.engine.spec_k if self.engine.spec_enabled else 0
         for seq in self._active():
             if seq.table is None or seq.pending_tail:
                 continue    # tail seqs: write range planned below
-            cover = min(seq.length + 1, cap)
+            cover = min(seq.length + k + 1, cap)
             if not self._extend_table(seq, pages_needed(cover, P)):
                 continue    # preempted itself; back in the queue
             self._make_range_writable(
@@ -628,6 +797,8 @@ class ContinuousScheduler:
             return
         b = engine.max_batch
         r = engine.step_rows        # == b + tail_budget when merged
+        spec = engine.spec_enabled
+        k = engine.spec_k if spec else 0
         # _grow already sized every table for the full write range;
         # span over table lengths keeps the bucket consistent with it
         span = max(len(s.table) for _, s in live)
@@ -636,13 +807,28 @@ class ContinuousScheduler:
         table = np.full((r, bucket), SCRATCH_PAGE, np.int32)
         lengths = np.zeros((r,), np.int32)
         active = np.zeros((r,), bool)
+        use_draft = np.zeros((r,), bool)
+        seeds = np.zeros((r,), np.uint32)
+        temps = np.zeros((r,), np.float32)
+        top_ks = np.zeros((r,), np.int32)
+        top_ps = np.ones((r,), np.float32)
+
+        def put(row, seq):
+            sp = seq.sampling
+            active[row] = True
+            seeds[row] = sp.seed & 0xFFFFFFFF
+            temps[row] = sp.temperature
+            top_ks[row] = sp.top_k
+            top_ps[row] = sp.top_p
+
         for row, s in live:
             if s.pending_tail:
                 continue    # fed through the ragged tail rows below
             tokens[row] = s.last_token
             table[row, :len(s.table)] = s.table
             lengths[row] = s.length
-            active[row] = True
+            use_draft[row] = s.use_draft
+            put(row, s)
         # ragged rows b..r-1: planned prompt-tail chunks ride the same
         # fixed-shape step. Row j of a chunk holds the prompt token at
         # absolute position lengths[row]; the kernel's per-row length
@@ -661,33 +847,51 @@ class ContinuousScheduler:
                 tokens[row] = seq.pending_tail[j]
                 table[row, :len(seq.table)] = seq.table
                 lengths[row] = seq.length + j
-                active[row] = True
+                put(row, seq)
             tail_rows.append((seq, next_row - 1, chunk))
         t0 = _trace.now()
-        out = engine.step(tokens, table, lengths, active)
+        samp = (seeds, temps, top_ks, top_ps)
+        if spec:
+            out, n_emit = engine.spec_step(tokens, table, lengths, active,
+                                           use_draft, *samp)
+        else:
+            out = engine.step(tokens, table, lengths, active, *samp)
         dt = _trace.now() - t0
         emitted = 0
-        for row, s in live:
-            if s.pending_tail:
-                continue    # decode row was inactive this step
-            s.length += 1
-            emitted += 1
-            self._handle_token(s, int(out[row]))
-        for seq, last_row, chunk in tail_rows:
-            if seq.table is None or seq.future.done():
-                continue
-            seq.length += chunk
-            del seq.pending_tail[:chunk]
-            if not seq.pending_tail:
-                # tail tokens are prefill work, not emitted tokens:
-                # counted via note_prefill in _finish_tail
-                self._finish_tail(seq, int(out[last_row]))
+        if spec:
+            for row, s in live:
+                n = int(n_emit[row])
+                if s.use_draft:
+                    self.stats.note_spec(k, n - 1)
+                for j in range(n):
+                    if s.table is None or s.future.done():
+                        break   # resolved mid-run (eos/max_tokens)
+                    s.length += 1
+                    emitted += 1
+                    self._handle_token(s, int(out[row, j]))
+        else:
+            for row, s in live:
+                if s.pending_tail:
+                    continue    # decode row was inactive this step
+                s.length += 1
+                emitted += 1
+                self._handle_token(s, int(out[row]))
+            for seq, last_row, chunk in tail_rows:
+                if seq.table is None or seq.future.done():
+                    continue
+                seq.length += chunk
+                del seq.pending_tail[:chunk]
+                if not seq.pending_tail:
+                    # tail tokens are prefill work, not emitted tokens:
+                    # counted via note_prefill in _finish_tail
+                    self._finish_tail(seq, int(out[last_row]))
         self.stats.note_step(emitted, dt)
         _trace.record_span(
             "decoding.step", None, t0, t0 + dt,
             {"trace_ids": tuple(s.trace_id for _, s in live),
              "model": self.key, "live": len(live), "bucket": bucket,
              "tokens": emitted})
+        self.stats.note_pool()
         if engine._guard and self.stats.steps % 16 == 0:
             # interval drain of the numerics guard (one fetch per 16
             # steps)
@@ -718,10 +922,16 @@ class ContinuousScheduler:
                         return
             if self._closed and not self._drain:
                 doomed.extend(self._active())
+                now = time.monotonic()
                 for s in doomed:
-                    self.stats.note_failed()
-                    self._resolve(s, exc=ServerClosedError(
-                        "decoder stopped"))
+                    if self._handoff:
+                        # drain() timed out with work in flight: every
+                        # leftover resolves with its resume record
+                        self._hand_off(s, now)
+                    else:
+                        self.stats.note_failed()
+                        self._resolve(s, exc=ServerClosedError(
+                            "decoder stopped"))
                 return
             try:
                 self._check_deadlines(time.monotonic())
@@ -755,29 +965,46 @@ class DecodedModel:
 
         model = DecodedModel("lm", 1, init_decoder_params(cfg), cfg,
                              max_batch=8, num_pages=1024)
-        for tok in model.stream(prompt_ids, max_new_tokens=64): ...
+        for tok in model.stream(prompt_ids, max_new_tokens=64,
+                                sampling=SamplingParams(
+                                    temperature=0.8, top_k=40,
+                                    top_p=0.95, seed=7)): ...
+
+    `draft`: a draft model's params (a flat dict or a Decoder, with
+    `draft_cfg`), the string "self" (the target drafts for itself), or
+    None to read MXNET_DECODE_SPEC_DRAFT; `spec_k` draft tokens a step
+    (MXNET_DECODE_SPEC_K).
     """
 
     def __init__(self, name, version, params, cfg, *, max_batch=None,
                  page_size=None, num_pages=None, page_buckets=None,
                  ring_prefill=None, queue_cap=None, max_tokens=None,
-                 warmup=True, draft=None, prefix_cache=None,
-                 merged_step=None, kv_dtype=None, device=None):
+                 warmup=True, draft=None, draft_cfg=None, spec_k=None,
+                 prefix_cache=None, merged_step=None, kv_dtype=None,
+                 device=None):
         self.name = name
         self.version = int(version)
         self.cfg = cfg
         if draft is None and _cfg.spec_draft():
             draft = _cfg.spec_draft()
-        if draft is not None:
-            raise ServingError(
-                "speculative decoding (draft=...) is not available in "
-                "mxnet_tpu_torch yet; it comes with the speculative slice")
+        draft_params = None
+        if isinstance(draft, str):
+            if draft == "self":
+                draft_params, draft_cfg = params, cfg
+            elif draft:
+                raise ServingError(
+                    f"unknown draft spec {draft!r} (expected 'self' or a "
+                    "params dict)")
+        elif draft is not None:
+            draft_params = draft
+            draft_cfg = draft_cfg if draft_cfg is not None else cfg
         self.engine = DecodeEngine(
             params, cfg, max_batch=max_batch, page_size=page_size,
             num_pages=num_pages, page_buckets=page_buckets,
-            ring_prefill=ring_prefill, prefix_cache=prefix_cache,
+            ring_prefill=ring_prefill, draft_params=draft_params,
+            draft_cfg=draft_cfg, spec_k=spec_k, prefix_cache=prefix_cache,
             merged_step=merged_step, kv_dtype=kv_dtype, device=device)
-        self.stats = DecodeStats(traces_fn=self.engine.traces,
+        self.stats = DecodeStats(key=self.key, traces_fn=self.engine.traces,
                                  pool_fn=self.engine.pool_stats)
         self.scheduler = ContinuousScheduler(
             self.engine, self.stats, self.key, queue_cap=queue_cap,
@@ -795,8 +1022,9 @@ class DecodedModel:
         return f"{self.name}:{self.version}"
 
     def warmup(self):
-        """Visit the full decode grid and latch the trace floor; the
-        scheduler thread starts only once the model is warm."""
+        """Visit the full decode grid (capturing its graphs on CUDA) and
+        latch the trace floor; the scheduler thread starts only once the
+        model is warm."""
         self.engine.warmup()
         self.stats.mark_warmup_done()
         if not self._started:
@@ -806,30 +1034,46 @@ class DecodedModel:
 
     # -------------------------------------------------------- data path
     def submit(self, prompt, max_new_tokens=None, priority=0,
-               deadline_ms=None, sampling=None, seed=None):
+               deadline_ms=None, sampling=None, seed=None, draft=None):
         return self.scheduler.submit(prompt,
                                      max_new_tokens=max_new_tokens,
                                      priority=priority,
                                      deadline_ms=deadline_ms,
-                                     sampling=sampling, seed=seed)
+                                     sampling=sampling, seed=seed,
+                                     draft=draft)
 
     def generate(self, prompt, max_new_tokens=None, priority=0,
-                 deadline_ms=None, timeout=None, sampling=None,
-                 seed=None):
+                 deadline_ms=None, timeout=None, sampling=None, seed=None,
+                 draft=None):
         """Sync decode: the full generated token list."""
         return self.submit(prompt, max_new_tokens=max_new_tokens,
                            priority=priority, deadline_ms=deadline_ms,
-                           sampling=sampling, seed=seed).result(timeout)
+                           sampling=sampling, seed=seed,
+                           draft=draft).result(timeout)
 
     def stream(self, prompt, max_new_tokens=None, priority=0,
-               deadline_ms=None, timeout=None, sampling=None,
-               seed=None):
+               deadline_ms=None, timeout=None, sampling=None, seed=None,
+               draft=None):
         """Streaming decode: a TokenStream yielding tokens as steps
         complete. Close it (or exit its `with` block) to cancel."""
         fut = self.submit(prompt, max_new_tokens=max_new_tokens,
                           priority=priority, deadline_ms=deadline_ms,
-                          sampling=sampling, seed=seed)
+                          sampling=sampling, seed=seed, draft=draft)
         return fut.stream(timeout=timeout)
+
+    def admit_resumed(self, state):
+        """Admit a handed-off request (ContinuousScheduler.admit_resumed):
+        returns a DecodeFuture whose stream emits only the tokens not yet
+        delivered elsewhere."""
+        return self.scheduler.admit_resumed(state)
+
+    def drain(self, timeout=30):
+        """Stop admitting, finish live decodes (up to `timeout` s), hand
+        off the rest; returns the handoff records."""
+        try:
+            return self.scheduler.drain(timeout=timeout)
+        finally:
+            _stats._unregister(self.key, self.stats)
 
     def close(self, drain=True, timeout=30):
         self.scheduler.stop(drain=drain, timeout=timeout)

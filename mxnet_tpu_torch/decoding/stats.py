@@ -9,13 +9,17 @@ schedules:
   preemptions/readmissions  sequences evicted for pages and brought
                             back (re-prefilled)
   p50/p95/p99_token_ms      per-token decode latency
-  traces_since_warmup       prefill/decode calls at a shape warmup did
-                            not run — must stay 0 in steady state
+  spec_acceptance_rate      accepted / proposed draft tokens, and
+  tokens_per_target_step    tokens emitted per target step (speculative)
+  traces_since_warmup       captures (CUDA) or calls at a shape warmup
+                            did not visit — must stay 0 in steady state
 
 The snapshot keys are those of the JAX package's `decodingStats` view.
 The Prometheus instruments and the view registration belong to the
-telemetry slice and are not part of this package yet; `decoding_stats()`
-reads every live `DecodedModel` directly.
+observability slice (ROADMAP.md A.4) and are not part of this package
+yet; `decoding_stats()` reads every live `DecodedModel` directly, and
+the `note_*` calls that feed only those instruments in the JAX package
+(`note_prefix_reuse`, `note_pool`) record nothing here.
 """
 from __future__ import annotations
 
@@ -48,13 +52,22 @@ def decoding_stats():
     return {key: st.snapshot() for key, st in items}
 
 
+def reset_decoding_stats():
+    """Zero the counters of every live decode model."""
+    with _registry_lock:
+        items = list(_registry.values())
+    for st in items:
+        st.reset()
+
+
 class DecodeStats:
     """Counters for one decode model. `traces_fn` reads the engine's
     trace counter; `pool_fn` reads the allocator; `depth_fn` reads the
     scheduler's (waiting, active) — all live at snapshot time."""
 
-    def __init__(self, traces_fn=None, pool_fn=None, depth_fn=None,
-                 prefix_fn=None):
+    def __init__(self, key=None, traces_fn=None, pool_fn=None,
+                 depth_fn=None, prefix_fn=None):
+        self._key = key or ""
         self._lock = threading.Lock()
         self._traces_fn = traces_fn
         self._pool_fn = pool_fn
@@ -103,6 +116,21 @@ class DecodeStats:
     def note_cancelled(self, n=1):
         with self._lock:
             self.cancelled += n
+
+    def note_spec(self, proposed, accepted):
+        """One speculative step's draft accounting for one row."""
+        with self._lock:
+            self.spec_proposed += proposed
+            self.spec_accepted += accepted
+
+    def note_prefix_reuse(self, pages):
+        """Prompt pages mapped from the prefix cache at admission (the
+        snapshot's hit/miss detail comes from prefix_fn); feeds only the
+        JAX package's Prometheus counter."""
+
+    def note_pool(self):
+        """Per-step refresh of the occupancy/bytes gauges; the snapshot
+        reads the pool live (pool_fn), so nothing is kept here."""
 
     def note_failed(self, n=1):
         with self._lock:

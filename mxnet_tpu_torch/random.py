@@ -17,6 +17,12 @@ Three streams, all under `seed()`:
            op by op with its fused multiply-adds (`_fma`). SGLD's noise
            and the `uniform`, `normal` and `exponential` sampler ops are
            the JAX package's under the same seed.
+
+A key is a pair of 32-bit halves. They may be Python integers or int64
+tensors of one shape S; `fold_in`, `uniform` and `gumbel` then work on
+S keys at once, one independent stream a key, all on the keys' device
+with no read back to the host (the decode tier's per-row streams,
+decoding/sampling.py).
 """
 from __future__ import annotations
 
@@ -93,10 +99,21 @@ def _threefry2x32(k1, k2, x1, x2):
 
 def _bits(key, n, device="cpu"):
     """n random 32-bit words of `key` (jax's partitionable
-    random_bits): the hash of the counters 0..n-1, halves XORed."""
+    random_bits): the hash of the counters 0..n-1, halves XORed. Keys
+    of shape S give (S..., n) words on the keys' device."""
+    k1, k2 = (k.unsqueeze(-1) if torch.is_tensor(k) else k for k in key)
+    if torch.is_tensor(k1):
+        device = k1.device
     lo = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = _threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    b1, b2 = _threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return b1 ^ b2
+
+
+def fold_in(key, data):
+    """jax.random.fold_in(key, data) for 32-bit `data`: the hash of the
+    counter pair (0, data) under the key. `data` may be an int64 tensor
+    broadcasting against the key's halves."""
+    return _threefry2x32(key[0], key[1], 0, data & _M32)
 
 
 def split(key):
@@ -216,14 +233,27 @@ def uniform(key, shape, low=0.0, high=1.0, device="cpu",
             dtype=torch.float32):
     """jax.random.uniform(key, shape, float32, low, high) bit for bit:
     the bits' 23 high ones as a mantissa in [1, 2), less one, scaled
-    with one rounding (XLA fuses the multiply and the add)."""
+    with one rounding (XLA fuses the multiply and the add). Keys of
+    shape S give (S + shape) values, one draw a key."""
     bits = _bits(key, math.prod(shape), device)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = mant.view(torch.float32) - 1.0
     low32, high32 = float(_np.float32(low)), float(_np.float32(high))
     scale = float(_np.float32(high32 - low32))
     out = _fma(floats, scale, low32)
-    return torch.clamp_min(out, low32).reshape(shape).to(dtype)
+    out = torch.clamp_min(out, low32)
+    return out.reshape(tuple(bits.shape[:-1]) + tuple(shape)).to(dtype)
+
+
+_TINY32 = float(_np.finfo(_np.float32).tiny)
+
+
+def gumbel(key, shape, device="cpu"):
+    """jax.random.gumbel(key, shape) in float32 bit for bit (its default
+    mode): -log(-log(u)) of uniforms u in [tiny, 1), both logs XLA's CPU
+    logf. Keys of shape S give (S + shape) values."""
+    u = uniform(key, shape, _TINY32, 1.0, device)
+    return -_logf32(-_logf32(u))
 
 
 def normal(key, shape, device="cpu", dtype=torch.float32):

@@ -76,8 +76,9 @@ register_env(
     "MXNET_DECODE_MERGED_STEP", bool, True,
     "decoding: run prefix-cache tail-prefill tokens as extra rows of "
     "the fixed-shape decode step (ragged paged attention). Applies "
-    "when the prefix cache is on. The split tail-prefill grid (0 "
-    "with the prefix cache on) is not available in this package yet.",
+    "when the prefix cache is on and speculative decoding is off; 0 "
+    "restores the split grid of tail-prefill shapes per length "
+    "bucket.",
 )
 register_env(
     "MXNET_DECODE_KV_DTYPE", str, "float32",
@@ -110,15 +111,25 @@ register_env(
     "before any live sequence is preempted. 0 disables.",
 )
 register_env(
+    "MXNET_DECODE_SPEC_K", int, 4,
+    "decoding: draft tokens proposed per speculative step. The target "
+    "verifies all K+1 positions in one fixed-shape multi-query pass "
+    "and emits 1..K+1 tokens per step; output is distribution-"
+    "identical to target-only decoding (exactly equal under greedy). "
+    "Only active when a draft model is loaded.",
+)
+register_env(
     "MXNET_DECODE_SPEC_DRAFT", str, "",
-    "decoding: default draft-model spec. Only the empty default is "
-    "accepted in this package.",
+    "decoding: default draft-model spec for DecodedModel. 'self' = the "
+    "target drafts for itself (acceptance ~1). Empty = no draft; "
+    "speculative decoding is then off unless a draft params dict is "
+    "passed explicitly.",
 )
 register_env(
     "MXNET_DECODE_SAMPLING_TEMPERATURE", float, 0.0,
-    "decoding: default sampling temperature. <= 0 is greedy argmax; "
-    "sampled decoding is not available in this package yet, so a "
-    "request with temperature > 0 is refused at submit.",
+    "decoding: default sampling temperature for requests that do not "
+    "pass SamplingParams. <= 0 is greedy argmax; > 0 samples inside "
+    "the decode step from the request's (seed, position) stream.",
 )
 register_env(
     "MXNET_DECODE_SAMPLING_TOP_K", int, 0,

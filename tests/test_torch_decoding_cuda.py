@@ -211,3 +211,151 @@ def test_decoded_model_on_card_matches_host(cuda_device):
         finally:
             m.close()
     assert outs["cpu"] == outs[str(cuda_device)]
+
+
+# ------------------------------------------------------------ graphs
+GRAPH_CFG = dict(vocab=512, d_model=64, n_layers=2, n_heads=4, d_ff=128,
+                 max_len=256)
+
+
+def _graph_engine(device, spec=False):
+    """A small engine on the card, warmed (its graphs captured); with
+    `spec` a self-draft at K = 3."""
+    from mxnet_tpu_torch import decoding as dec
+
+    cfg = dec.DecoderConfig(**GRAPH_CFG)
+    params = dec.init_decoder_params(cfg, seed=0)
+    kw = dict(draft_params=params, spec_k=3) if spec else {}
+    return dec.DecodeEngine(params, cfg, max_batch=4, page_size=16,
+                            num_pages=64, page_buckets=(1, 2, 4, 16),
+                            prefix_cache=False, device=device,
+                            **kw).warmup()
+
+
+def _live_rows(eng, rows, prompt_len=20, pages=4):
+    """`rows` sequences prefilled with prompts of prompt_len tokens; the
+    step arrays of their next decode step over a 4-page table."""
+    import numpy as np
+
+    tables = [eng.allocator.alloc(pages) for _ in range(rows)]
+    rs = np.random.RandomState(3)
+    last = []
+    for t in tables:
+        prompt = rs.randint(2, eng.cfg.vocab, size=prompt_len).tolist()
+        last.append(eng.prefill(prompt, t[:2]))
+    table = np.asarray(tables, np.int32)
+    lengths = np.full((rows,), prompt_len, np.int32)
+    samp = (np.arange(rows, dtype=np.uint32) * 977,
+            np.asarray([0.0, 0.8, 1.2, 0.5][:rows], np.float32),
+            np.asarray([0, 40, 0, 5][:rows], np.int32),
+            np.asarray([1.0, 0.95, 0.9, 1.0][:rows], np.float32))
+    return (np.asarray(last, np.int32), table, lengths,
+            np.ones((rows,), bool)), samp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_graph_step_bit_identical_to_eager(cuda_device, spec, sampled):
+    """One step of each family replayed from its CUDA graph against the
+    same step run eagerly on the same pool state (a step's writes are
+    idempotent on equal inputs): equal tokens, and equal pools."""
+    import numpy as np
+
+    eng = _graph_engine(cuda_device, spec)
+    floor = eng.traces()
+    rows, samp = _live_rows(eng, 4)
+    if not sampled:
+        samp = (samp[0], np.zeros(4, np.float32)) + samp[2:]
+
+    def run():
+        if spec:
+            return eng.spec_step(*rows, np.ones(4, bool), *samp)
+        return (eng.step(*rows, *samp),)
+
+    with eng.eager():
+        eager = run()
+    pools = [t.clone() for t in (eng._k.data, eng._v.data)]
+    graphed = run()
+    for a, b in zip(eager, graphed):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(pools[0], eng._k.data)
+    assert torch.equal(pools[1], eng._v.data)
+    assert eng.traces() == floor
+
+
+@pytest.mark.cuda
+def test_graphs_captured_at_warmup_only(cuda_device):
+    """warmup() captures every cell's two graphs (greedy, sampling);
+    serving greedy, sampled and speculative requests captures nothing
+    more, and the kernel runs n_layers times a decode step."""
+    from mxnet_tpu_torch import decoding as dec
+
+    cfg = dec.DecoderConfig(**GRAPH_CFG)
+    params = dec.init_decoder_params(cfg, seed=0)
+    m = dec.DecodedModel("lm", 1, params, cfg, max_batch=4, page_size=16,
+                         num_pages=64, page_buckets=(1, 2, 4, 16),
+                         device=cuda_device)
+    try:
+        counts = m.engine.trace_counts()
+        assert all(counts[f"decode@{b}"] == 2 for b in (1, 2, 4, 16))
+        tattn.reset_launch_counts()
+        outs = [m.generate([5, 6, 7] * k, max_new_tokens=8, timeout=120,
+                           sampling=sp)
+                for k, sp in ((1, None), (7, {"temperature": 0.8,
+                                              "seed": 1}))]
+        snap = m.stats.snapshot()
+        assert snap["traces_since_warmup"] == 0 and all(outs)
+        assert tattn.launch_counts()["paged_attention_float"] \
+            == cfg.n_layers * snap["steps"]
+    finally:
+        m.close()
+    s = dec.DecodedModel("lm", 2, params, cfg, max_batch=4, page_size=16,
+                         num_pages=64, page_buckets=(1, 2, 4, 16),
+                         draft="self", spec_k=3, prefix_cache=False,
+                         device=cuda_device)
+    try:
+        assert s.engine.trace_counts()["verify@16"] == 2
+        s.generate([5, 6, 7], max_new_tokens=8, timeout=120)
+        assert s.stats.snapshot()["traces_since_warmup"] == 0
+    finally:
+        s.close()
+
+
+@pytest.mark.cuda
+def test_gumbel_on_card_bit_identical_to_cpu(cuda_device):
+    import numpy as np
+
+    from mxnet_tpu_torch.decoding import sampling as samp
+
+    seeds = torch.tensor([0, 1, 7, 2 ** 31, 2 ** 32 - 1, 5, 6, 9])
+    pos = torch.arange(8) * 251 + 3
+    host = samp.gumbel(samp.stream_key(seeds, pos, samp.SALT_TOKEN), 32000)
+    card = samp.gumbel(samp.stream_key(seeds.to(cuda_device),
+                                       pos.to(cuda_device), samp.SALT_TOKEN),
+                       32000)
+    np.testing.assert_array_equal(host.numpy().view(np.int32),
+                                  card.cpu().numpy().view(np.int32))
+    u = samp.accept_uniform(seeds.to(cuda_device), pos.to(cuda_device))
+    np.testing.assert_array_equal(
+        samp.accept_uniform(seeds, pos).numpy().view(np.int32),
+        u.cpu().numpy().view(np.int32))
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_naming_the_cell(cuda_device, monkeypatch):
+    """A step body that syncs the host cannot be captured: the engine
+    raises MXNetError naming the cell, and never steps eagerly."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.decoding import engine as eng_mod
+
+    body = eng_mod.DecodeEngine._decode_body
+
+    def syncing(self, buf, rows, bucket, sampled):
+        out = body(self, buf, rows, bucket, sampled)
+        out.sum().item()
+        return out
+
+    monkeypatch.setattr(eng_mod.DecodeEngine, "_decode_body", syncing)
+    with pytest.raises(MXNetError, match=r"decode@16 cell"):
+        _graph_engine(cuda_device)

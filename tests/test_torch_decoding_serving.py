@@ -4,8 +4,8 @@ the port's gives token-for-token equal greedy streams (shared prompt
 prefixes take the merged ragged tail rows; the pool is small enough to
 force preemptions), equal to dense greedy decoding and with equal
 page-level bookkeeping; plus the port's own serving contract — device
-rule, import rule, stats keys, zero steady-state traces, refusals of
-what this slice leaves out, and pool-preserving probes."""
+rule, import rule, stats keys, zero steady-state traces, the one option
+still refused (ring-attention prefill), and pool-preserving probes."""
 import os
 import subprocess
 import sys
@@ -235,23 +235,35 @@ def test_import_rule():
 
 
 def test_out_of_slice_options_raise():
+    """Only ring-attention prefill is still refused (and an empty prompt
+    is an error); a draft model, the split tail-prefill grid and sampled
+    requests are accepted and decode."""
     kw = dict(device="cpu", warmup=False, page_size=4, num_pages=16,
               page_buckets=(1, 2))
-    with pytest.raises(ServingError, match="speculative"):
-        tdec.DecodedModel("lm", 1, PARAMS, TCFG, draft="self", **kw)
-    with pytest.raises(MXNetError, match="ring"):
+    with pytest.raises(MXNetError, match="A.9"):
         tdec.DecodedModel("lm", 1, PARAMS, TCFG, ring_prefill=8, **kw)
-    with pytest.raises(MXNetError, match="split tail-prefill"):
-        tdec.DecodedModel("lm", 1, PARAMS, TCFG, prefix_cache=True,
-                          merged_step=False, **kw)
-    m = tdec.DecodedModel("lm", 1, PARAMS, TCFG, **kw)
+    spec = tdec.DecodedModel("lm", 1, PARAMS, TCFG, draft="self",
+                             spec_k=2, **kw)
+    split = tdec.DecodedModel("lm", 2, PARAMS, TCFG, prefix_cache=True,
+                              merged_step=False, **kw)
     try:
-        with pytest.raises(ServingError, match="sampled decoding"):
-            m.submit([3, 4], sampling={"temperature": 0.7})
+        assert spec.engine.spec_enabled
+        assert not spec.engine.merged_step_enabled
+        assert split.engine.prefix_cache_enabled
+        assert not split.engine.merged_step_enabled
+        spec.warmup()
+        assert spec.generate([3, 4], max_new_tokens=3, timeout=60) \
+            == _dense_greedy([3, 4], 3)
+        split.warmup()
+        sampled = split.generate([3, 4], max_new_tokens=3, timeout=60,
+                                 sampling={"temperature": 0.7, "seed": 5})
+        assert len(sampled) <= 3
+        assert all(0 <= t < TCFG.vocab for t in sampled)
         with pytest.raises(ServingError):
-            m.submit([])
+            split.submit([])
     finally:
-        m.close()
+        spec.close()
+        split.close()
 
 
 def test_streaming_deadline_and_cancel():
