@@ -433,6 +433,42 @@ each of which exits non-zero on failure:
                   workers' gathered ones bit for bit, then its step 4
                   against the workers' step 4. (e) is phase 14's ring-
                   prefill arm (a `model_parallel: {...}` summary line)
+ 21. pipeline and experts (after phase 20, in the same launch; module
+                  docstrings of parallel/pipeline.py, parallel/moe.py,
+                  module/pipeline_module.py) float32, TF32 off,
+                  numpy-seeded weights, the parent's one-process
+                  references run before the workers' go: (a) one layer
+                  of phase 9's tower a stage (causal attention + FFN,
+                  both residual, d_model 512), PipelineModule over 4
+                  stages, 2 a worker, 8 microbatches of the 8 x 2048
+                  batch, loss l2, SGD with momentum, 4 steps: step 1's
+                  outputs and parameters against the parent's
+                  composition of the 4 layers microbatch by microbatch,
+                  within PE_STEP1_WORST; each worker stores 2 of the 4
+                  stages; both ranks' losses and outputs equal; step ms
+                  p50/p95, tokens/s, the boundary's bytes and send/recv
+                  ms a step. (b) phase 9's tower with layers 1 and 3
+                  MoE (8 experts, capacity 2560 of 16,384 tokens): the
+                  parent's 3 steps with no mesh (step ms, tokens
+                  dropped, aux loss), then mesh {'expert': 2} in the
+                  workers, the whole batch on both, 3 steps: step 1
+                  against the parent's, the ranks bit-equal, each
+                  computing 4 of the 8 experts' FFN (counted), gloo's
+                  bytes a step. (c) Inception-ResNet-v2 at full width
+                  and HALF_DEPTH as 4 stage symbols cut between blocks
+                  (each boundary changes the shape, each stage holds
+                  BatchNorm), softmax_ce over 1000 classes, batch 32 in
+                  4 microbatches, 2 stages a worker, 3 steps: step 1's
+                  parameters and moving statistics against the
+                  parent's composition of the same stage executors
+                  microbatch by microbatch, within PE_HET_STEP1_WORST
+                  and PE_HET_AUX_WORST, both below what a dropped
+                  microbatch or a reversed order of the moving
+                  statistics' updates reads; each worker binds its 2
+                  stages' executors alone, the two storing one copy
+                  of the parameters between them; B1 and B2 4 and 80
+                  a step summed over the workers (a `pipe_expert:
+                  {...}` summary line)
 
 Phases 6, 9, 11, 12, 13, 17 and 18 train through the fused step, each
 step after its first a replay of one captured CUDA graph (phase 10's
@@ -1817,6 +1853,13 @@ def _ahead_sources(mx):
     jobs.append((inc, _bind_shapes(inc, data=(TRAIN_BATCH, 3, 299, 299),
                                    softmax_label=(TRAIN_BATCH,)),
                  (None, torch.bfloat16)))
+    # phase 21's: the MoE tower and the pipelined tower layer (its
+    # Inception stages' groups are the whole net's)
+    pe = _pe_config()
+    for net, shapes in ((_pe_moe_net(pe), {"data": _pe_shape(pe),
+                                           "label": _pe_shape(pe)}),
+                        (_pe_stage(mx, pe), {"data": (1,) + _pe_shape(pe)[1:]})):
+        jobs.append((net, _bind_shapes(net, **shapes), (None,)))
     ssd = get_ssd_train(num_classes=SSD_CLASSES)
     jobs.append((ssd, _bind_shapes(ssd, data=(SSD_BATCH, 3, SSD_IMAGE,
                                               SSD_IMAGE),
@@ -6122,7 +6165,7 @@ def _dp_config():
     20's part, which the same workers run after phase 19's."""
     return {"batch": DP_BATCH, "steps": DP_STEPS, "seed": DP_SEED,
             "device": DP_DEVICE, "image": DP_IMAGE, "repeats": DP_REPEATS,
-            "mp": _mp_config()}
+            "mp": _mp_config(), "pe": _pe_config()}
 
 
 def _dp_net(cfg):
@@ -6409,6 +6452,12 @@ def _dp_worker(out):
     mp["worker_s"] = time.perf_counter() - t
     # what this process compiled in both phases
     res["compiled"] = kernels.compiled()
+    t = time.perf_counter()
+    pe = _pe_worker(torch, mx, cfg["pe"], out, rank)
+    pe["worker_s"] = time.perf_counter() - t
+    pe["compiled"] = kernels.compiled()[len(res["compiled"]):]
+    with open(os.path.join(out, f"pe-{rank}.json"), "w") as f:
+        json.dump(pe, f)
     with open(os.path.join(out, f"worker-{rank}.json"), "w") as f:
         json.dump(res, f)
     with open(os.path.join(out, f"mp-{rank}.json"), "w") as f:
@@ -6517,6 +6566,10 @@ def phase_data_parallel(torch, mx, card, workers):
         t1 = time.perf_counter()
         res["mp_reference"] = _mp_reference(torch, mx, cfg["mp"])
         res["mp_reference_s"] = time.perf_counter() - t1
+        # and phase 21's
+        t1 = time.perf_counter()
+        res["pe_reference"] = _pe_reference(torch, mx, cfg["pe"])
+        res["pe_reference_s"] = time.perf_counter() - t1
         with open(os.path.join(out, "go"), "w"):
             pass
         stdout, stderr = proc.communicate(timeout=DP_WORKERS_TIMEOUT)
@@ -6598,7 +6651,9 @@ def phase_data_parallel(torch, mx, card, workers):
                     "workers_both_phases": res["workers_s"],
                     "reference_before_go": res["reference_s"],
                     "phase20_reference_before_go":
-                        res["mp_reference_s"]},
+                        res["mp_reference_s"],
+                    "phase21_reference_before_go":
+                        res["pe_reference_s"]},
         "group_bind_s": res["group"]["bind_s"], "card": card}
     log("phase 19: " + json.dumps(res["summary"]))
     check(digest == workers[0]["init_digest"],
@@ -7021,6 +7076,680 @@ def phase_model_parallel(torch, mx, card, dp):
     return res
 
 
+# ----------------------------------------------------------- phase 21
+PE_STAGES, PE_MICRO = 4, 8   # (a): one tower layer a stage, 8 microbatches
+PE_PIPE_STEPS = 4
+PE_MOE_STEPS = 3             # (b): the MoE tower's steps
+PE_EXPERTS, PE_MOE_EVERY = 8, 2
+PE_HET_BATCH, PE_HET_MICRO, PE_HET_STEPS = 32, 4, 3   # (c)
+PE_SEED = 21
+PE_OPT = (("learning_rate", 0.01), ("momentum", 0.9))
+PE_DEVICE = "cuda"
+PE_IMAGE = 299
+PE_REPEATS = HALF_DEPTH
+# step 1 of the workers against the parent's one-process step from the
+# same weights, each tensor's difference over its movement (moving
+# statistics: over their change; a movement below 1e-6 counts as 1e-6,
+# as phase 19's rule: a tensor that does not move differs by rounding
+# alone): (a) and (c) sum the microbatches' gradients in another order
+# (one backward a microbatch), (b) computes the same sums with the
+# experts' outputs gathered over gloo. The CPU rehearsal (d_model 32,
+# batch 8 x 64; Inception at 75x75, repeats (1, 1, 1), batch 16)
+# measured (a) 0.0, (b) 0.0, (c) 1.2e-4 to 2.1e-4 (moving statistics
+# 3.6e-6); the card, (a) 0.0, (b) 0.0, (c) 5.5e-4 at lr 0.05 and 2.4e-3
+# at lr 0.01 (moving statistics 0.0). cuDNN picks (c)'s convolutions'
+# weight-gradient algorithms in each process for itself, so the
+# workers' sums run in other orders than the parent's, as in phase 6's
+# check of the same net (1e-3 of a gradient's max): (c)'s parameters
+# are held to ten times (a) and (b)'s limit. Its moving statistics come
+# from the forward alone and are held to their own readings' limit.
+# What a wrong schedule reads against the same composition (computed in
+# the parent each run and checked to exceed these limits): on the CPU
+# rehearsal a dropped last microbatch 1.0 (parameters) and 0.66 (moving
+# statistics), the moving statistics updated in reverse order 0.35.
+PE_STEP1_WORST = 1e-3
+PE_HET_STEP1_WORST = 1e-2
+PE_HET_AUX_WORST = 1e-4
+
+
+def _pe_config():
+    return {"tower": dict(TOWER_CFG), "batch": TOWER_BATCH,
+            "seq": TOWER_SEQ, "stages": PE_STAGES, "micro": PE_MICRO,
+            "pipe_steps": PE_PIPE_STEPS, "moe_steps": PE_MOE_STEPS,
+            "experts": PE_EXPERTS, "moe_every": PE_MOE_EVERY,
+            "het_batch": PE_HET_BATCH, "het_micro": PE_HET_MICRO,
+            "het_steps": PE_HET_STEPS, "image": PE_IMAGE,
+            "repeats": list(PE_REPEATS), "seed": PE_SEED,
+            "opt": [list(o) for o in PE_OPT], "device": PE_DEVICE}
+
+
+def _pe_stage(mx, cfg):
+    """(a)'s stage: one layer of phase 9's tower, causal attention
+    through the RingAttention op and the FFN, each added back."""
+    from mxnet_tpu_torch.models import transformer as tr
+
+    t = cfg["tower"]
+    x = mx.sym.Variable("data")
+    x = x + tr._attention(x, t["d_model"], t["num_heads"], "attn", "ring",
+                          True)
+    return x + tr._ffn(x, t["d_model"], t["d_ff"], "ffn", None)
+
+
+def _pe_shape(cfg):
+    return (cfg["batch"], cfg["seq"], cfg["tower"]["d_model"])
+
+
+def _pe_batch(cfg, step, shape=None):
+    rs = np.random.RandomState(cfg["seed"] * 1000 + step)
+    shape = shape or _pe_shape(cfg)
+    return tuple(rs.uniform(-1, 1, shape).astype(np.float32)
+                 for _ in range(2))
+
+
+def _pe_pipe_init(mx, cfg):
+    """(a)'s stage-major weights (S, ...), numpy-drawn from the seed."""
+    stage = _pe_stage(mx, cfg)
+    small = (1, 8, cfg["tower"]["d_model"])
+    shapes, _, _ = stage.infer_shape(data=small)
+    rs = np.random.RandomState(cfg["seed"])
+    return {n: (rs.standard_normal((cfg["stages"],) + tuple(sh))
+                / np.sqrt(sh[-1])).astype(np.float32)
+            for n, sh in zip(stage.list_arguments(), shapes)
+            if n != "data"}
+
+
+def _pe_moe_net(cfg):
+    from mxnet_tpu_torch.models import get_transformer
+
+    return get_transformer(moe_every=cfg["moe_every"],
+                           num_experts=cfg["experts"], **cfg["tower"])
+
+
+def _pe_moe_init(cfg):
+    """(b)'s weights, normal over each weight's fan-in: a dense weight's
+    (out, in) last dimension, the router's (D, E) first, an expert
+    weight's (E, in, out) second."""
+    net = _pe_moe_net(cfg)
+    small = (1, 8, cfg["tower"]["d_model"])
+    shapes, _, _ = net.infer_shape(data=small, label=small)
+    rs = np.random.RandomState(cfg["seed"] + 1)
+
+    def fan_in(n, sh):
+        return sh[1] if len(sh) == 3 else sh[0] \
+            if n.endswith("_gate_weight") else sh[-1]
+
+    return {n: (rs.standard_normal(sh) / np.sqrt(fan_in(n, sh)))
+            .astype(np.float32)
+            for n, sh in zip(net.list_arguments(), shapes)
+            if n not in ("data", "label")}
+
+
+def _pe_moe_module(mx, cfg, init, ctx, mesh_shape):
+    mod = mx.mod.Module(_pe_moe_net(cfg), label_names=("label",),
+                        context=ctx, mesh_shape=mesh_shape)
+    mod.bind(data_shapes=[("data", _pe_shape(cfg))],
+             label_shapes=[("label", _pe_shape(cfg))])
+    mod.init_params(arg_params={n: mx.nd.array(v, ctx=ctx)
+                                for n, v in init.items()},
+                    aux_params={}, force_init=True)
+    mod.init_optimizer(kvstore="tpu" if mesh_shape else "local",
+                       optimizer="sgd",
+                       optimizer_params=tuple(map(tuple, cfg["opt"])))
+    return mod
+
+
+def _pe_het_stages(cfg):
+    """(c)'s stages: Inception-ResNet-v2 at full width cut into 4 stage
+    symbols between blocks (models/inception_resnet_v2.py
+    `get_pipeline_stages`)."""
+    from mxnet_tpu_torch.models import inception_resnet_v2 as irv
+
+    return irv.get_pipeline_stages(repeats=tuple(cfg["repeats"]))
+
+
+def _pe_het_init(layout):
+    """{"stage{s}/{name}": array} of (c)'s parameters and aux states from
+    [(stage, name, shape, is_aux)], numpy-drawn from the seed: weights
+    normal over the fan-in, BatchNorm's gamma 1 and beta 0, moving means
+    0 and variances 1."""
+    rs = np.random.RandomState(PE_SEED + 2)
+    args, auxs = {}, {}
+    for s, n, sh, is_aux in layout:
+        key = f"stage{s}/{n}"
+        if is_aux:
+            auxs[key] = (np.ones if n.endswith("_var") else np.zeros)(
+                sh, np.float32)
+        elif n.endswith("_gamma"):
+            args[key] = np.ones(sh, np.float32)
+        elif n.endswith("_beta") or n.endswith("_bias"):
+            args[key] = np.zeros(sh, np.float32)
+        else:
+            fan = int(np.prod(sh[1:])) if len(sh) > 1 else sh[0]
+            args[key] = (rs.standard_normal(sh) / np.sqrt(fan)).astype(
+                np.float32)
+    return args, auxs
+
+
+def _pe_het_batch(cfg, step):
+    rs = np.random.RandomState(cfg["seed"] * 1000 + 500 + step)
+    side = cfg["image"]
+    x = rs.uniform(-1, 1, (cfg["het_batch"], 3, side, side)).astype(
+        np.float32)
+    y = rs.randint(0, 1000, (cfg["het_batch"],)).astype(np.float32)
+    return x, y
+
+
+def _pe_timed_steps(torch, mx, cfg, ctx, pm_or_mod, batches, on_step):
+    """Each batch a step through forward_backward + update, the card
+    synchronised and the workers lined up before each; [ms a step]."""
+    from mxnet_tpu_torch.parallel import collective
+
+    ms = []
+    for s, (x, y) in enumerate(batches):
+        _dp_sync(torch, cfg)
+        collective.barrier()
+        t0 = time.perf_counter()
+        pm_or_mod.forward_backward(mx.io.DataBatch(
+            data=[mx.nd.array(x, ctx=ctx)], label=[mx.nd.array(y, ctx=ctx)]))
+        pm_or_mod.update()
+        _dp_sync(torch, cfg)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        on_step(s)
+    return ms
+
+
+def _pe_worker(torch, mx, cfg, out, rank):
+    """Phase 21 in one of the two workers (after phase 20's part): (a)
+    the tower's layers pipelined, 2 stages a worker; (b) the MoE tower on
+    mesh {'expert': 2}, the whole batch on both; (c) Inception-ResNet-v2
+    as 4 pipelined stages. Rank 0 writes each arm's step-1 state."""
+    from mxnet_tpu_torch import passes
+    from mxnet_tpu_torch.parallel import collective, moe
+
+    ctx = _dp_ctx(mx, cfg)
+    res, parts = {}, {}
+    # (a) the pipelined tower
+    t = time.perf_counter()
+    init = _pe_pipe_init(mx, cfg)
+    pm = mx.mod.PipelineModule(_pe_stage(mx, cfg),
+                               num_stages=cfg["stages"],
+                               num_microbatches=cfg["micro"], context=ctx,
+                               loss="l2")
+    pm.bind(data_shapes=[("data", _pe_shape(cfg))])
+    pm.init_params(arg_params=init)
+    pm.init_optimizer(optimizer="sgd",
+                      optimizer_params=tuple(map(tuple, cfg["opt"])))
+    parts["a_bind"] = time.perf_counter() - t
+    a = {"local_bytes": int(sum(v.numel() * v.element_size()
+                                for v in pm.params.values())),
+         "whole_bytes": int(sum(v.nbytes for v in init.values())),
+         "local_stages": int(pm.params["ffn_w1_weight"].shape[0]),
+         "losses": []}
+
+    def a_step(s):
+        a["losses"].append(pm.loss_value)
+        if s == 0:
+            sent = dict(collective.sent_bytes())
+            secs = dict(collective.collective_seconds())
+            a["p2p_bytes_step1"] = sent.get("p2p", 0)
+            a["p2p_s_step1"] = secs.get("p2p", 0.0)
+            args, _ = pm.get_params()
+            outs = pm.get_outputs()[0].asnumpy()
+            a["outs_digest"] = _np_digests({"outs": outs})["outs"]
+            if rank == 0:
+                np.savez(os.path.join(out, "pe_a_step1.npz"), outs=outs,
+                         **{n: v.asnumpy() for n, v in args.items()})
+            collective.reset_sent_bytes()
+
+    collective.reset_sent_bytes()
+    t = time.perf_counter()
+    a["step_ms"] = _pe_timed_steps(
+        torch, mx, cfg, ctx, pm,
+        [_pe_batch(cfg, s) for s in range(cfg["pipe_steps"])], a_step)
+    parts["a_steps"] = time.perf_counter() - t
+    later = len(a["step_ms"]) - 1
+    sent, secs = collective.sent_bytes(), collective.collective_seconds()
+    a["p2p_bytes_per_step"] = sent.get("p2p", 0) / later
+    a["p2p_ms_per_step"] = secs.get("p2p", 0.0) * 1e3 / later
+    a["finite"] = bool(np.isfinite(a["losses"]).all())
+    res["a"] = a
+    del pm
+    if cfg["device"] == "cuda":
+        torch.cuda.empty_cache()
+    # (b) the MoE tower over mesh {'expert': 2}
+    t = time.perf_counter()
+    mod = _pe_moe_module(mx, cfg, _pe_moe_init(cfg), ctx, {"expert": 2})
+    fs = mod._fused_step
+    parts["b_bind"] = time.perf_counter() - t
+    b = {"digests": [], "uncaptured_op": fs.uncaptured_op,
+         "graphed": fs.graphed}
+    moe.reset_stats()
+    collective.reset_sent_bytes()
+
+    def b_step(s):
+        params = {n: v.cpu().numpy() for n, v in fs.snapshot()[0].items()}
+        b["digests"].append(_np_digests(params))
+        if s == 0 and rank == 0:
+            np.savez(os.path.join(out, "pe_b_step1.npz"), **params)
+
+    t = time.perf_counter()
+    b["step_ms"] = _pe_timed_steps(
+        torch, mx, cfg, ctx, mod,
+        [_pe_batch(cfg, 100 + s) for s in range(cfg["moe_steps"])], b_step)
+    parts["b_steps"] = time.perf_counter() - t
+    st = moe.stats()
+    b.update({"experts_computed": st["experts_computed"],
+              "experts": st["experts"], "calls": st["calls"],
+              "gloo_bytes_per_step": sum(collective.sent_bytes().values())
+              / cfg["moe_steps"],
+              "gloo_ms_per_step": sum(collective.collective_seconds()
+                                      .values()) * 1e3 / cfg["moe_steps"],
+              "batch_scale": fs._batch_scale, "nproc": fs._nproc})
+    res["b"] = b
+    del mod, fs
+    if cfg["device"] == "cuda":
+        torch.cuda.empty_cache()
+    # (c) Inception-ResNet-v2 as 4 pipelined stages
+    t = time.perf_counter()
+    side = cfg["image"]
+    pm = mx.mod.PipelineModule(_pe_het_stages(cfg),
+                               num_microbatches=cfg["het_micro"],
+                               context=ctx, loss="softmax_ce")
+    pm.bind(data_shapes=[("data", (cfg["het_batch"], 3, side, side))])
+    args, auxs = _pe_het_init(_pe_het_layout(pm))
+    pm.init_params(arg_params=args, aux_params=auxs)
+    pm.init_optimizer(optimizer="sgd",
+                      optimizer_params=tuple(map(tuple, cfg["opt"])))
+    parts["c_bind"] = time.perf_counter() - t
+    c = {"local_rows": int(pm.params["pipeline_flat"].shape[0]),
+         "bound_stages": [s for s, ex in enumerate(pm._stage_execs)
+                          if ex is not None],
+         "losses": []}
+    c.update(_pe_het_bytes(pm))
+
+    def c_step(s):
+        c["losses"].append(pm.loss_value)
+        if s == 0:
+            c["launches_step1"] = passes.launch_counts()
+            c["p2p_bytes_step1"] = collective.sent_bytes().get("p2p", 0)
+            got_a, got_x = pm.get_params()
+            if rank == 0:
+                np.savez(os.path.join(out, "pe_c_step1.npz"),
+                         **{f"arg:{n}": v.asnumpy()
+                            for n, v in got_a.items()},
+                         **{f"aux:{n}": v.asnumpy()
+                            for n, v in got_x.items()})
+
+    passes.reset_launch_counts()
+    collective.reset_sent_bytes()
+    t = time.perf_counter()
+    c["step_ms"] = _pe_timed_steps(
+        torch, mx, cfg, ctx, pm,
+        [_pe_het_batch(cfg, s) for s in range(cfg["het_steps"])], c_step)
+    parts["c_steps"] = time.perf_counter() - t
+    c["launches_per_step"] = {k: v / cfg["het_steps"] for k, v in
+                              passes.launch_counts().items() if v}
+    c["finite"] = bool(np.isfinite(c["losses"]).all())
+    res["c"] = c
+    res["parts_s"] = parts
+    del pm
+    if cfg["device"] == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def _pe_het_bytes(pm):
+    """{"stored_bytes": the parameter and aux bytes this process keeps
+    on its device for a bound hetero PipelineModule (its rows of the
+    flat buckets, its stage executors' parameter and aux arrays),
+    "whole_bytes": the same for all S stages}."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    stored = nbytes([pm.params["pipeline_flat"], pm._flat_auxs])
+    for s, ex in enumerate(pm._stage_execs):
+        if ex is not None:
+            inputs = set(pm._stage_in_names[s])
+            stored += nbytes([a._data for n, a in ex.arg_dict.items()
+                              if n not in inputs])
+            stored += nbytes([a._data for a in ex.aux_dict.values()])
+    segs = [seg for ss in pm._param_segs + pm._aux_segs for seg in ss]
+    whole = 4 * pm._num_stages * (pm._lmax + pm._amax) + sum(
+        sz * np.dtype(dt).itemsize for (_n, _o, sz, _s, dt) in segs)
+    return {"stored_bytes": int(stored), "whole_bytes": int(whole)}
+
+
+def _pe_het_layout(pm):
+    """[(stage, name, shape, is_aux)] of a bound hetero PipelineModule."""
+    out = []
+    for s, (segs, asegs) in enumerate(zip(pm._param_segs, pm._aux_segs)):
+        out += [(s, n, shp, False) for (n, _o, _z, shp, _d) in segs]
+        out += [(s, n, shp, True) for (n, _o, _z, shp, _d) in asegs]
+    return out
+
+
+def _pe_reference(torch, mx, cfg):
+    """The parent's one-process references, before the workers' go: (a)
+    the 4 layers composed microbatch by microbatch, their step 1; (b) the
+    MoE tower with no mesh, PE_MOE_STEPS steps; (c) the 4 Inception
+    stages composed microbatch by microbatch, step 1 and the moving
+    statistics."""
+    from mxnet_tpu_torch.parallel import moe
+
+    ctx = _dp_ctx(mx, cfg)
+    dev = ctx.torch_device()
+    lr = dict(map(tuple, cfg["opt"]))["learning_rate"]
+    res, parts = {}, {}
+    # (a) a stage executor at one microbatch, composed S times
+    t = time.perf_counter()
+    init = _pe_pipe_init(mx, cfg)
+    shape = _pe_shape(cfg)
+    mb = (shape[0] // cfg["micro"],) + shape[1:]
+    ex = _pe_stage(mx, cfg).simple_bind(ctx=ctx, grad_req="null", data=mb)
+    leaves = {n: torch.tensor(v, device=dev).requires_grad_(True)
+              for n, v in init.items()}
+    x, y = _pe_batch(cfg, 0)
+    outs = []
+    for m in range(cfg["micro"]):
+        rows = slice(m * mb[0], (m + 1) * mb[0])
+        with torch.enable_grad():
+            h = torch.tensor(x[rows], device=dev)
+            for s in range(cfg["stages"]):
+                h = ex._run_graph({**{n: v[s] for n, v in leaves.items()},
+                                   "data": h}, True, aux_vals={})[0][0]
+            yt = torch.tensor(y[rows], device=dev)
+            loss = torch.mean(torch.square(h - yt)) / cfg["micro"]
+            loss.backward()
+        outs.append(h.detach().cpu().numpy())
+    res["a"] = {"init": init, "outs": np.concatenate(outs),
+                "after": {n: (v - lr * v.grad).detach().cpu().numpy()
+                          for n, v in leaves.items()}}
+    del leaves, ex, outs, h
+    parts["a"] = time.perf_counter() - t
+    # (b) the MoE tower in one process, no mesh
+    t = time.perf_counter()
+    binit = _pe_moe_init(cfg)
+    mod = _pe_moe_module(mx, cfg, binit, ctx, None)
+    fs = mod._fused_step
+    b = {"step_ms": [], "dropped": [], "aux": []}
+    for s in range(cfg["moe_steps"]):
+        moe.reset_stats()
+        _dp_sync(torch, cfg)
+        t0 = time.perf_counter()
+        _mp_step(mx, mod, ctx, _pe_batch(cfg, 100 + s))
+        _dp_sync(torch, cfg)
+        b["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        b["dropped"].append(moe.stats()["dropped"])
+        b["aux"].append(float(mod.get_outputs()[1].asnumpy()))
+        if s == 0:
+            b["after"] = {n: v.cpu().numpy()
+                          for n, v in fs.snapshot()[0].items()}
+            st = moe.stats()
+            b["tokens_per_layer_step"] = st["tokens"] // max(st["calls"], 1)
+    b.update({"init": binit, "uncaptured_op": fs.uncaptured_op,
+              "graphed": fs.graphed, "params": int(sum(
+                  v.size for v in binit.values()))})
+    res["b"] = b
+    del mod, fs
+    parts["b"] = time.perf_counter() - t
+    # (c) the Inception stages composed
+    t = time.perf_counter()
+    stages = _pe_het_stages(cfg)
+    side = cfg["image"]
+    mbn = cfg["het_batch"] // cfg["het_micro"]
+    shape = (mbn, 3, side, side)
+    execs, layout = [], []
+    for s, sym in enumerate(stages):
+        e = sym.simple_bind(ctx=ctx, grad_req="null", data=shape)
+        execs.append(e)
+        _, out_shapes, _ = sym.infer_shape(data=shape)
+        layout += [(s, n, tuple(e.arg_dict[n].shape), False)
+                   for n in e._arg_names if n != "data"]
+        layout += [(s, n, tuple(e.aux_dict[n].shape), True)
+                   for n in e._aux_names]
+        shape = tuple(out_shapes[0])
+    args, auxs = _pe_het_init(layout)
+    leaves = {k: torch.tensor(v, device=dev).requires_grad_(True)
+              for k, v in args.items()}
+    state = {k: torch.tensor(v, device=dev) for k, v in auxs.items()}
+    x, y = _pe_het_batch(cfg, 0)
+
+    def compose(h, state):
+        for s, e in enumerate(execs):
+            pre = f"stage{s}/"
+            a = {n[len(pre):]: v for n, v in leaves.items()
+                 if n.startswith(pre)}
+            xs = {n[len(pre):]: v for n, v in state.items()
+                  if n.startswith(pre)}
+            outs, upd = e._run_graph({**a, "data": h}, True, aux_vals=xs)
+            for n, v in upd.items():
+                state[pre + n] = v.detach()
+            h = outs[0]
+        return h
+
+    def stepped(grads):
+        return {k: (v - lr * grads[k]).detach().cpu().numpy()
+                if k in grads   # fix_gamma's gamma has no gradient
+                else v.detach().cpu().numpy() for k, v in leaves.items()}
+
+    def host(state):
+        return {k: v.cpu().numpy() for k, v in state.items()}
+
+    last = cfg["het_micro"] - 1
+    for m in range(cfg["het_micro"]):
+        rows = slice(m * mbn, (m + 1) * mbn)
+        if m == last:   # what a schedule that dropped it would hold
+            dropped = {k: v.grad.clone() for k, v in leaves.items()
+                       if v.grad is not None}
+            dropped_state = host(state)
+        with torch.enable_grad():
+            h = compose(torch.tensor(x[rows], device=dev), state)
+            logp = torch.log_softmax(h, dim=-1)
+            lab = torch.tensor(y[rows], device=dev).long()
+            loss = -logp.gather(-1, lab[:, None])[:, 0].mean() \
+                / cfg["het_micro"]
+            loss.backward()
+    after = stepped({k: v.grad for k, v in leaves.items()
+                     if v.grad is not None})
+    after_aux = host(state)
+    # a schedule that updates the moving statistics in reverse order
+    reversed_state = {k: torch.tensor(v, device=dev)
+                      for k, v in auxs.items()}
+    with torch.no_grad():
+        for m in reversed(range(cfg["het_micro"])):
+            compose(torch.tensor(x[m * mbn:(m + 1) * mbn], device=dev),
+                    reversed_state)
+    # the readings phase 21's checks would give for those two faults
+    faults = {
+        "dropped_microbatch": max(_pe_worst(
+            args, stepped(dropped), after).values()),
+        "dropped_microbatch_moving_stats": max(_pe_worst(
+            auxs, dropped_state, after_aux).values()),
+        "moving_stats_reversed": max(_pe_worst(
+            auxs, host(reversed_state), after_aux).values())}
+    res["c"] = {"init": args, "init_aux": auxs, "after": after,
+                "after_aux": after_aux, "fault_readings": faults}
+    del dropped, reversed_state
+    del leaves, state, execs, h
+    parts["c"] = time.perf_counter() - t
+    res["parts_s"] = parts
+    if cfg["device"] == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def _pe_worst(init, got, want, floor=1e-6):
+    """{tensor: max |got - want| / max |want - init|}."""
+    out = {}
+    for n, w in want.items():
+        moved = max(float(np.abs(w - init[n]).max()), floor)
+        out[n] = float(np.abs(got[n] - w).max()) / moved
+    return out
+
+
+def phase_pipe_expert(torch, mx, card, dp):
+    """Phase 21's checks on what the workers of phase 19's launch wrote
+    and the parent's references (module docstring)."""
+    cfg = _pe_config()
+    out = dp["out"]
+    ref = dp["pe_reference"]
+    workers = []
+    for r in range(2):
+        path = os.path.join(out, f"pe-{r}.json")
+        check(os.path.exists(path), f"phase 21: worker {r} wrote no result")
+        with open(path) as f:
+            workers.append(json.load(f))
+    res = {}
+    for r, w in enumerate(workers):
+        check(w["compiled"] == [], f"phase 21: worker {r} compiled "
+              f"{w['compiled']}")
+    # (a) the pipelined tower
+    a = [w["a"] for w in workers]
+    for r, w in enumerate(a):
+        check(w["finite"] and len(w["step_ms"]) == cfg["pipe_steps"],
+              f"phase 21 (a): worker {r}: {len(w['step_ms'])} steps, "
+              f"finite {w['finite']}")
+        check(w["local_stages"] == cfg["stages"] // 2
+              and 2 * w["local_bytes"] == w["whole_bytes"],
+              f"phase 21 (a): worker {r} stores {w['local_bytes']} of "
+              f"{w['whole_bytes']} B ({w['local_stages']} stages), not half")
+    check(a[0]["losses"] == a[1]["losses"]
+          and a[0]["outs_digest"] == a[1]["outs_digest"],
+          f"phase 21 (a): the ranks' losses or outputs differ: "
+          f"{a[0]['losses']} {a[1]['losses']}")
+    step1 = dict(np.load(os.path.join(out, "pe_a_step1.npz")))
+    out_err = float(np.abs(step1.pop("outs") - ref["a"]["outs"]).max())
+    out_scale = float(np.abs(ref["a"]["outs"]).max())
+    worst = _pe_worst(ref["a"]["init"], step1, ref["a"]["after"])
+    name = max(worst, key=worst.get)
+    tokens = cfg["batch"] * cfg["seq"]
+    later = [ms for w in a for ms in w["step_ms"][1:]]
+    res["a"] = {
+        "step_ms": [w["step_ms"] for w in a],
+        "step_ms_p50": float(np.percentile(later, 50)),
+        "step_ms_p95": float(np.percentile(later, 95)),
+        "tokens_per_s": tokens / (float(np.percentile(later, 50)) / 1e3),
+        "boundary_bytes_per_step_each_way": a[0]["p2p_bytes_per_step"],
+        "boundary_bytes_per_microbatch": a[0]["p2p_bytes_per_step"]
+        / cfg["micro"],
+        "send_recv_ms_per_step": [w["p2p_ms_per_step"] for w in a],
+        "stored_bytes": [w["local_bytes"] for w in a],
+        "whole_bytes": a[0]["whole_bytes"],
+        "step1_outputs_vs_composition": out_err / max(out_scale, 1e-12),
+        "step1_vs_one_process": {"worst_tensor": name,
+                                 "worst": worst[name],
+                                 "tol": PE_STEP1_WORST},
+        "losses": a[0]["losses"], "ranks_equal": True}
+    check(out_err <= PE_STEP1_WORST * out_scale,
+          f"phase 21 (a): step 1's outputs against the composition: "
+          f"{out_err!r} of {out_scale!r}")
+    check(worst[name] <= PE_STEP1_WORST,
+          f"phase 21 (a): step 1 against one process's: {name} differs by "
+          f"{worst[name]!r} of its movement")
+    # (b) the MoE tower
+    b = [w["b"] for w in workers]
+    for r, w in enumerate(b):
+        layers = cfg["tower"]["num_layers"] // cfg["moe_every"]
+        check(2 * w["experts_computed"] == w["experts"]
+              and w["calls"] == layers * cfg["moe_steps"],
+              f"phase 21 (b): worker {r} computed {w['experts_computed']} "
+              f"of {w['experts']} expert products in {w['calls']} calls")
+        check(w["nproc"] == 2 and w["batch_scale"] == 1,
+              f"phase 21 (b): worker {r}: not a two-process expert mesh")
+    check(b[0]["digests"] == b[1]["digests"],
+          "phase 21 (b): the ranks' parameters differ")
+    step1 = dict(np.load(os.path.join(out, "pe_b_step1.npz")))
+    worst = _pe_worst(ref["b"]["init"], step1, ref["b"]["after"])
+    name = max(worst, key=worst.get)
+    res["b"] = {
+        "params": ref["b"]["params"],
+        "one_process_step_ms": ref["b"]["step_ms"],
+        "one_process_uncaptured_op": ref["b"]["uncaptured_op"],
+        "dropped_per_step": ref["b"]["dropped"],
+        "tokens_per_moe_layer": ref["b"]["tokens_per_layer_step"],
+        "aux_per_step": ref["b"]["aux"],
+        "step_ms": [w["step_ms"] for w in b],
+        "gloo_bytes_per_step": [w["gloo_bytes_per_step"] for w in b],
+        "gloo_ms_per_step": [w["gloo_ms_per_step"] for w in b],
+        "experts_computed_of": [b[0]["experts_computed"],
+                                b[0]["experts"]],
+        "uncaptured_op": b[0]["uncaptured_op"],
+        "step1_vs_one_process": {"worst_tensor": name,
+                                 "worst": worst[name],
+                                 "tol": PE_STEP1_WORST},
+        "ranks_bit_equal": True}
+    check(worst[name] <= PE_STEP1_WORST,
+          f"phase 21 (b): step 1 against one process's: {name} differs by "
+          f"{worst[name]!r} of its movement")
+    # (c) the Inception pipeline
+    c = [w["c"] for w in workers]
+    launches = {}
+    for r, w in enumerate(c):
+        check(w["finite"] and w["local_rows"] == 2
+              and w["bound_stages"] == [2 * r, 2 * r + 1],
+              f"phase 21 (c): worker {r}: finite {w['finite']}, "
+              f"{w['local_rows']} stages, executors bound for "
+              f"{w['bound_stages']}")
+        for k, v in w["launches_per_step"].items():
+            launches[k] = launches.get(k, 0) + v
+    want = {"elementwise": cfg["het_micro"],
+            "scale_bias_act": cfg["het_micro"] * sum(cfg["repeats"])}
+    stored = [w["stored_bytes"] for w in c]
+    check(sum(stored) == c[0]["whole_bytes"],
+          f"phase 21 (c): the workers store {stored} B of parameters and "
+          f"aux state, not {c[0]['whole_bytes']} B between them")
+    check(all(launches.get(k) == v for k, v in want.items()),
+          f"phase 21 (c): B1/B2 launches a step summed over the workers "
+          f"{launches}, expected {want}")
+    faults = ref["c"]["fault_readings"]
+    step1 = dict(np.load(os.path.join(out, "pe_c_step1.npz")))
+    got = {k[4:]: v for k, v in step1.items() if k.startswith("arg:")}
+    got_aux = {k[4:]: v for k, v in step1.items() if k.startswith("aux:")}
+    worst = _pe_worst(ref["c"]["init"], got, ref["c"]["after"])
+    worst_aux = _pe_worst(ref["c"]["init_aux"], got_aux,
+                          ref["c"]["after_aux"])
+    name = max(worst, key=worst.get)
+    aname = max(worst_aux, key=worst_aux.get)
+    later = [ms for w in c for ms in w["step_ms"][1:]]
+    res["c"] = {
+        "step_ms": [w["step_ms"] for w in c],
+        "step_ms_p50": float(np.percentile(later, 50)),
+        "images_per_s": cfg["het_batch"]
+        / (float(np.percentile(later, 50)) / 1e3),
+        "boundary_bytes_step1": [w["p2p_bytes_step1"] for w in c],
+        "launches_per_step_summed": launches,
+        "launches_per_step": [w["launches_per_step"] for w in c],
+        "step1_vs_one_process": {"worst_tensor": name,
+                                 "worst": worst[name],
+                                 "tol": PE_HET_STEP1_WORST},
+        "moving_stats_step1_vs_one_process": {
+            "worst_tensor": aname, "worst": worst_aux[aname],
+            "tol": PE_HET_AUX_WORST},
+        "fault_readings": faults,
+        "stored_bytes": stored, "whole_bytes": c[0]["whole_bytes"],
+        "losses": [w["losses"] for w in c]}
+    check(worst[name] <= PE_HET_STEP1_WORST
+          and worst_aux[aname] <= PE_HET_AUX_WORST,
+          f"phase 21 (c): step 1 against the composition: {name} "
+          f"{worst[name]!r}, {aname} {worst_aux[aname]!r} of the movement")
+    # the limits sit below what a wrong schedule reads
+    check(faults["dropped_microbatch"] > PE_HET_STEP1_WORST
+          and faults["dropped_microbatch_moving_stats"] > PE_HET_AUX_WORST
+          and faults["moving_stats_reversed"] > PE_HET_AUX_WORST,
+          f"phase 21 (c): the limits do not separate the schedule faults' "
+          f"readings {faults}")
+    res["summary"] = {
+        "pipe_tower": res["a"], "moe_tower": res["b"],
+        "inception_pipeline": res["c"],
+        "worker_parts_s": [w["parts_s"] for w in workers],
+        "reference_parts_s": ref["parts_s"], "card": card}
+    log("pipe_expert: " + json.dumps(res["summary"]))
+    log("phase 21 ok: the tower's layers pipelined over two workers, the "
+        "MoE tower on an expert mesh, Inception-ResNet-v2 as 4 pipelined "
+        "stages")
+    return res
+
+
 # -------------------------------------------------------------- main
 def _kernel_line(rows, launches_float, launches_int8, spec_launches,
                  ring_launches):
@@ -7254,6 +7983,8 @@ def main():
     dp["ring_prefill"] = tier["ring"]
     mp = run("model_parallel", phase_model_parallel, torch, mx, card, dp)
     dp.pop("mp_reference", None)
+    pe = run("pipe_expert", phase_pipe_expert, torch, mx, card, dp)
+    dp.pop("pe_reference", None)
 
     line = {"kernels": _kernel_line(
         rows, serving["launches"]["paged_attention_float"],
@@ -7264,6 +7995,14 @@ def main():
                         codegen["launches"],
                         pipe["prefetch_on"]["launches"])
         + _flash_line(attn) + _rtc_line(rtc_res) + _vision_line(vision)}
+    # phase 21 (c): B1/B2 in the pipelined Inception stages, both workers'
+    # launches over its steps
+    het = pe["summary"]["inception_pipeline"]["launches_per_step_summed"]
+    for k in line["kernels"]:
+        template = k["name"][len("fusion_"):]
+        if template in ("elementwise", "scale_bias_act"):
+            k["launches_pipe_expert"] = int(het.get(template, 0)
+                                            * PE_HET_STEPS)
     report["kernels"] = line["kernels"]
     report["phase_s"]["total"] = time.perf_counter() - t_start
     # how each training phase's module trained (phases 6 and 17 must be

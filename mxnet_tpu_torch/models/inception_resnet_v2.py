@@ -7,7 +7,9 @@ On this port every residual `net + scale * proj` (+ relu) is one fusion
 group, lowered to a generated CUDA kernel (passes/codegen.py): 39
 scale_bias_act groups and the elementwise b8_final group at full depth.
 The `repeats` knob shrinks the three residual stages for tests and small
-budgets without changing any tensor shape.
+budgets without changing any tensor shape. `get_pipeline_stages` cuts
+the same graph at its three reductions' outputs into 4 stage Symbols for
+a PipelineModule.
 """
 from .. import symbol as sym
 
@@ -61,15 +63,10 @@ def _block8(net, name, act=True):
     return _residual(net, [t1, t2], 2080, 0.2, name, act=act)
 
 
-def get_inception_resnet_v2(num_classes=1000, repeats=(10, 20, 9),
-                            dropout=0.2):
-    """Build the Inception-ResNet-v2 classifier Symbol (299^2 input).
-
-    repeats=(a, b, c) sets the block35/block17/block8 stage depths;
-    the canonical net is (10, 20, 9)."""
-    data = sym.Variable("data")
-    # stem: 299 -> 35 spatial, 192 channels
-    net = _conv(data, 32, (3, 3), stride=(2, 2), name="stem1a")
+def _stem(net):
+    """stem: 299 -> 35 spatial, 192 channels; mixed 5b: 4 towers -> 320
+    channels."""
+    net = _conv(net, 32, (3, 3), stride=(2, 2), name="stem1a")
     net = _conv(net, 32, (3, 3), name="stem2a")
     net = _conv(net, 64, (3, 3), pad=(1, 1), name="stem2b")
     net = sym.Pooling(net, kernel=(3, 3), stride=(2, 2),
@@ -79,7 +76,6 @@ def get_inception_resnet_v2(num_classes=1000, repeats=(10, 20, 9),
     net = sym.Pooling(net, kernel=(3, 3), stride=(2, 2),
                       pool_type="max", name="stem_pool5a")
 
-    # mixed 5b: 4 towers -> 320 channels
     t1 = _conv(net, 96, name="m5b_b1")
     t2 = _conv(net, 48, name="m5b_b2r")
     t2 = _conv(t2, 64, (5, 5), pad=(2, 2), name="m5b_b2")
@@ -89,24 +85,26 @@ def get_inception_resnet_v2(num_classes=1000, repeats=(10, 20, 9),
     t4 = sym.Pooling(net, kernel=(3, 3), stride=(1, 1), pad=(1, 1),
                      pool_type="avg", name="m5b_pool")
     t4 = _conv(t4, 64, name="m5b_b4")
-    net = sym.Concat(t1, t2, t3, t4, dim=1, name="m5b_concat")
+    return sym.Concat(t1, t2, t3, t4, dim=1, name="m5b_concat")
 
-    for i in range(repeats[0]):
+
+def _stage35(net, repeats):
+    """the block35s, then reduction A: 320 -> 1088 channels, stride 2."""
+    for i in range(repeats):
         net = _block35(net, f"b35_{i + 1}")
-
-    # reduction A: 320 -> 1088 channels, stride 2
     t1 = _conv(net, 384, (3, 3), stride=(2, 2), name="redA_b1")
     t2 = _conv(net, 256, name="redA_b2r")
     t2 = _conv(t2, 256, (3, 3), pad=(1, 1), name="redA_b2a")
     t2 = _conv(t2, 384, (3, 3), stride=(2, 2), name="redA_b2b")
     t3 = sym.Pooling(net, kernel=(3, 3), stride=(2, 2),
                      pool_type="max", name="redA_pool")
-    net = sym.Concat(t1, t2, t3, dim=1, name="redA_concat")
+    return sym.Concat(t1, t2, t3, dim=1, name="redA_concat")
 
-    for i in range(repeats[1]):
+
+def _stage17(net, repeats):
+    """the block17s, then reduction B: 1088 -> 2080 channels, stride 2."""
+    for i in range(repeats):
         net = _block17(net, f"b17_{i + 1}")
-
-    # reduction B: 1088 -> 2080 channels, stride 2
     t1 = _conv(net, 256, name="redB_b1r")
     t1 = _conv(t1, 384, (3, 3), stride=(2, 2), name="redB_b1")
     t2 = _conv(net, 256, name="redB_b2r")
@@ -116,9 +114,12 @@ def get_inception_resnet_v2(num_classes=1000, repeats=(10, 20, 9),
     t3 = _conv(t3, 320, (3, 3), stride=(2, 2), name="redB_b3b")
     t4 = sym.Pooling(net, kernel=(3, 3), stride=(2, 2),
                      pool_type="max", name="redB_pool")
-    net = sym.Concat(t1, t2, t3, t4, dim=1, name="redB_concat")
+    return sym.Concat(t1, t2, t3, t4, dim=1, name="redB_concat")
 
-    for i in range(repeats[2]):
+
+def _stage8(net, repeats, num_classes, dropout):
+    """the block8s, the head conv, pooling and the class logits."""
+    for i in range(repeats):
         net = _block8(net, f"b8_{i + 1}")
     net = _block8(net, "b8_final", act=False)
 
@@ -128,5 +129,32 @@ def get_inception_resnet_v2(num_classes=1000, repeats=(10, 20, 9),
     net = sym.Flatten(net)
     if dropout:
         net = sym.Dropout(net, p=dropout)
-    net = sym.FullyConnected(net, num_hidden=num_classes, name="fc1")
+    return sym.FullyConnected(net, num_hidden=num_classes, name="fc1")
+
+
+def get_inception_resnet_v2(num_classes=1000, repeats=(10, 20, 9),
+                            dropout=0.2):
+    """Build the Inception-ResNet-v2 classifier Symbol (299^2 input).
+
+    repeats=(a, b, c) sets the block35/block17/block8 stage depths;
+    the canonical net is (10, 20, 9)."""
+    net = _stem(sym.Variable("data"))
+    net = _stage35(net, repeats[0])
+    net = _stage17(net, repeats[1])
+    net = _stage8(net, repeats[2], num_classes, dropout)
     return sym.SoftmaxOutput(net, name="softmax")
+
+
+def get_pipeline_stages(num_classes=1000, repeats=(10, 20, 9)):
+    """The classifier as 4 pipeline stage Symbols, each reading `data`,
+    cut at block outputs so every fusion group stays whole: the stem and
+    mixed 5b (35x35x320 out); the block35s and reduction A (17x17x1088);
+    the block17s and reduction B (8x8x2080); the block8s, the head and
+    the logits (no dropout and no softmax: the pipeline's loss takes
+    the logits). Every stage holds BatchNorm."""
+    def data():
+        return sym.Variable("data")
+
+    return [_stem(data()), _stage35(data(), repeats[0]),
+            _stage17(data(), repeats[1]),
+            _stage8(data(), repeats[2], num_classes, 0)]

@@ -7,16 +7,16 @@ otherwise: einsum and softmax, not the flash kernel) and a position-wise
 FFN, each added back to its input; the head is a LinearRegressionOutput
 against a (B, T, d_model) label. `tp_axis` sets the `sharding` attribute
 of the FFN weights (w1 over it on dim 0, w2 on dim 1), which Module reads
-under a mesh. `moe_every` builds MoEFFN layers, which the port does not
-have yet: the graph then raises MXNetError.
+under a mesh. `moe_every=k` makes every k-th layer's FFN a MoEFFN of
+`num_experts` experts (parallel/moe.py), and the graph's second head is
+MakeLoss(sum of the layers' aux losses * moe_aux_weight), as in the JAX
+package.
 
     net = get_transformer(d_model=512, num_heads=8, d_ff=1024,
                           num_layers=4)
     mod = mx.mod.Module(net, label_names=("label",))
 """
 from .. import symbol as sym
-from ..base import MXNetError
-from ..ops.registry import NOT_PORTED
 
 
 def _attention(x, d_model, num_heads, name, impl, causal):
@@ -58,7 +58,10 @@ def _ffn(x, d_model, d_ff, name, tp_axis):
 
 
 def _moe(x, d_model, d_ff, num_experts, name, capacity_factor):
-    raise MXNetError(NOT_PORTED["MoEFFN"])
+    out = sym.MoEFFN(
+        x, num_experts=num_experts, hidden_size=d_ff,
+        capacity_factor=capacity_factor, name=name)
+    return out[0], out[1]
 
 
 def get_transformer(d_model=64, num_heads=4, d_ff=256, num_layers=2,

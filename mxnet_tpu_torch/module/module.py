@@ -77,8 +77,10 @@ normalized by the global batch (`_multiproc_mesh_plan`). dist_async
 keeps the eager path: its server applies each push as it arrives.
 
 Model parallelism (the JAX package's `mesh_shape`, `data_shardings` and
-`sharding=`): `mesh_shape` takes the axes data, model, seq, fsdp and tp;
-parameters follow their Symbol `__sharding__` attributes (axes the mesh
+`sharding=`): `mesh_shape` takes every mesh axis of the JAX package
+(data, model, seq, pipe, expert, fsdp, tp; a MoEFFN op reads the
+`expert` and `data` axes, parallel/moe.py, and pipelines are
+PipelineModule's); parameters follow their Symbol `__sharding__` attributes (axes the mesh
 lacks are ignored with a warning), `data_shardings` ({input: spec})
 splits inputs, e.g. {'data': 'None,seq'}, and a `sharding.ShardingPlan`
 adds its rule table (explicit plan overrides > Symbol attributes > plan
@@ -129,7 +131,7 @@ def params_from_jax(arg_params, aux_params, ctx=None):
 
 def _check_mesh_shape(mesh_shape):
     """{axis: size} of a mesh (`parallel.mesh.check_axes` refuses an
-    unknown axis, and the pipe and expert axes)."""
+    unknown axis)."""
     from ..parallel.mesh import check_axes
 
     shape = {str(k): int(v) for k, v in dict(mesh_shape).items()}

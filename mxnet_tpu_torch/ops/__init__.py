@@ -1,8 +1,6 @@
 """Operator library: one registry, torch implementations.
 
-Importing this package registers every op of mxnet_tpu/ops/ but the
-mixture of experts' MoEFFN, which the registry refuses with the
-ROADMAP.md item that queues it.
+Importing this package registers every op of mxnet_tpu/ops/.
 """
 from . import registry  # noqa: F401
 from . import elemwise  # noqa: F401

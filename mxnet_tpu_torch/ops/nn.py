@@ -100,7 +100,16 @@ def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
 def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
                     flatten=True):
     x = data.reshape((data.shape[0], -1)) if flatten else data
-    return F.linear(x, weight, None if no_bias else bias)
+    if x.dtype != weight.dtype:
+        # jnp.matmul's promotion (a bfloat16 activation against a
+        # float32 weight computes in float32)
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
+    if no_bias or bias is None:
+        return F.linear(x, weight)
+    if bias.dtype != x.dtype:
+        return F.linear(x, weight) + bias
+    return F.linear(x, weight, bias)
 
 
 # ------------------------------------------------------------ convolution

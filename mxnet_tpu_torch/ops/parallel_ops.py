@@ -10,9 +10,14 @@ it computes `_plain_attention`: einsum, the top-left causal `tril` mask
 with -inf, softmax and einsum in stock torch. It does not go through the
 flash kernel, and neither does the JAX op.
 
-`MoEFFN` (expert-parallel mixture of experts) waits for the second part
-of the model-parallel half of ROADMAP.md A.9: a graph that names it
-raises MXNetError (`registry.NOT_PORTED`).
+`MoEFFN` (alias `moe_ffn`) keeps the JAX op's inputs, defaults,
+coercions and two outputs (the tokens, the aux loss) and reads the
+ambient mesh: its `axis_name` axis splits the experts and a `data` axis
+across processes keeps the gating global (parallel/moe.py). On meta
+tensors (shape inference) it runs no collective. It is registered
+`capturable=False`: the index route reads the number of kept tokens on
+the host (`nonzero`), so a fused step whose graph holds it runs
+uncaptured and says so.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import math
 
 import torch
 
-from ..base import coerce_bool, coerce_float
+from ..base import coerce_bool, coerce_float, coerce_int
 from .registry import register
 
 
@@ -67,3 +72,28 @@ def ring_attention_op(query, key, value, causal=False, impl="ring",
     fn = ulysses_attention if impl == "ulysses" else ring_attention
     return fn(query, key, value, mesh=m, axis_name=axis_name,
               causal=causal, scale=scale)
+
+
+@register("MoEFFN", arg_names=["data", "gate_weight", "w1_weight",
+                               "w2_weight"],
+          coerce={"num_experts": coerce_int, "hidden_size": coerce_int,
+                  "capacity_factor": coerce_float},
+          defaults={"capacity_factor": 1.25, "axis_name": "expert"},
+          num_outputs=2, aliases=("moe_ffn",), capturable=False)
+def moe_ffn_op(data, gate_weight, w1_weight, w2_weight, num_experts=0,
+               hidden_size=0, capacity_factor=1.25, axis_name="expert"):
+    """Top-1-routed mixture-of-experts FFN over (..., D) tokens.
+
+    Outputs: (transformed tokens, load-balancing aux loss). The ambient
+    mesh's `axis_name` axis splits the experts across processes, and its
+    `data` axis keeps the gating global (parallel/moe.py)."""
+    from ..parallel import mesh as mesh_mod
+    from ..parallel.moe import moe_ffn
+
+    lead = tuple(data.shape[:-1])
+    x = data.reshape((-1, data.shape[-1]))
+    out, aux = moe_ffn(
+        x, gate_weight, w1_weight, w2_weight,
+        capacity_factor=capacity_factor,
+        mesh=mesh_mod.current_mesh(), axis_name=axis_name)
+    return out.reshape(lead + (data.shape[-1],)), aux

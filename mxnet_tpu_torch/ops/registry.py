@@ -71,14 +71,11 @@ class OpDef:
 
 _REGISTRY: dict[str, OpDef] = {}
 
-_MOE_MESSAGE = ("the mixture-of-experts op MoEFFN is not ported yet: it "
-                "waits for the second part of the model-parallel half of "
-                "the multi-device slice (ROADMAP.md A.9: pipeline and "
-                "expert parallelism)")
 # the JAX package's op names the port does not register yet, each refused
 # with the ROADMAP.md item that queues it (tests/test_torch_ndarray.py
-# holds the port's names and these to the JAX package's registry)
-NOT_PORTED = {"MoEFFN": _MOE_MESSAGE, "moe_ffn": _MOE_MESSAGE}
+# holds the port's names and these to the JAX package's registry); none
+# is left
+NOT_PORTED = {}
 
 
 class NotPortedError(MXNetError, AttributeError):

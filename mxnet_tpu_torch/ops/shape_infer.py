@@ -146,6 +146,22 @@ def _fc(params, ins):
     return [data, weight, bias], None
 
 
+@rule("MoEFFN")
+def _moe_ffn(params, ins):
+    data, gate_w, w1, w2 = (ins + [None] * 4)[:4]
+    e = int(params["num_experts"])
+    f = int(params["hidden_size"])
+    if data is not None:
+        d = data[-1]
+        if gate_w is None:
+            gate_w = (d, e)
+        if w1 is None:
+            w1 = (e, d, f)
+        if w2 is None:
+            w2 = (e, f, d)
+    return [data, gate_w, w1, w2], None
+
+
 @rule("Convolution")
 def _conv(params, ins):
     data, weight, bias = (ins + [None] * 3)[:3]

@@ -16,9 +16,11 @@ all-gather, reduce-scatter, all-to-all or send/recv, so each of them is
 composed here from what it has: all-gather and all-to-all from one
 all-reduce over a buffer with a zero slot a member (a sum with zeros is
 exact), reduce-scatter from an all-reduce and the member's own slice,
-and the ring step from paired `isend`/`irecv` of host copies (a CUDA
+the ring step from paired `isend`/`irecv` of host copies (a CUDA
 tensor's copy to the host waits on the caller's stream, and the copy
-back is queued on it, so the caller's later work waits on the step).
+back is queued on it, so the caller's later work waits on the step),
+and a pipeline's boundary from `send`/`recv` between two members of an
+axis, under the same discipline.
 Each moves the group size times the bytes a native collective would;
 with two members that is twice.
 """
@@ -205,6 +207,32 @@ def ring_shift(tensors, mesh, axis):
         for r in reqs:
             r.wait()
         return [r.to(t.device) for r, t in zip(out, tensors)]
+
+
+def send(t, mesh, axis, to):
+    """Send `t` to the member at index `to` along the mesh axis `axis`
+    (a host copy: on the card the copy waits for the caller's stream).
+    Blocks until the member has taken it."""
+    import torch.distributed as dist
+
+    pg, members = mesh.group((axis,))
+    with _count("p2p", t):
+        dist.send(t.detach().contiguous().cpu(), members[to], group=pg)
+
+
+def recv(shape, dtype, device, mesh, axis, frm):
+    """A tensor of `shape` and `dtype` from the member at index `frm`
+    along the mesh axis `axis`, on `device` (received on the host; the
+    copy to the card is queued on the caller's stream, so the caller's
+    later work waits for it)."""
+    import torch.distributed as dist
+
+    pg, members = mesh.group((axis,))
+    host = torch.empty(tuple(shape), dtype=dtype)
+    t0 = time.perf_counter()
+    dist.recv(host, members[frm], group=pg)
+    _SECONDS["p2p"] = _SECONDS.get("p2p", 0.0) + time.perf_counter() - t0
+    return host.to(device)
 
 
 def barrier():

@@ -105,6 +105,12 @@ mesh's shards. Across processes (one process a mesh entry):
   that splits the batch (`_split_axes`), one all-reduce a (dtype, axes)
   buffer; every process makes the same update of its own shards;
 - the outputs are this process's slice; `whole_outputs` gathers them;
+- MoEFFN (parallel/moe.py) computes this process's block of the
+  experts over an 'expert' axis, all-gathers the blocks' outputs and
+  sums the gradients of the block and of w1/w2 over the axis inside its
+  backward (so the data plane's all-reduce leaves them alone), and over
+  a 'data' axis gates globally (an all-gather of the per-expert counts
+  and an all-reduce of the means);
 - RingAttention over an axis that splits dimension 1 of the inputs
   takes this process's sequence shard, over one that splits dimension 0
   its rows of the batch, and over one that splits no input the whole
@@ -354,7 +360,7 @@ class FusedTrainStep:
             self._make_grad_buffers()
             self._ring_split = self._ring_layout(plan)
             mesh_ops = sorted({entry[0].name for entry in plan
-                               if entry[0].name == "RingAttention"})
+                               if entry[0].name in _MESH_OPS})
             if self._use_graphs and self.uncaptured_op is None:
                 if self._global_bn:
                     self.uncaptured_op = (
@@ -365,7 +371,8 @@ class FusedTrainStep:
                     what = [f"{len(self._shards)} sharded parameter(s) "
                             "gathered in forward and reduce-scattered in "
                             "backward"] if self._shards else []
-                    what += [f"{op}'s collectives" for op in mesh_ops]
+                    what += [f"{op}'s collectives{_MESH_OPS[op]}"
+                             for op in mesh_ops]
                     self.uncaptured_op = (
                         "gloo collectives inside forward and backward: "
                         + ", ".join(what))
@@ -1391,6 +1398,15 @@ class FusedTrainStep:
                 for n in self.states):
             raise MXNetError("optimizer state structure mismatch")
         self.load_states(host, t)
+
+
+# the mesh-aware ops whose collectives run inside forward and backward
+# across processes, and what they are
+_MESH_OPS = {
+    "RingAttention": "",
+    "MoEFFN": (" (the gating's prefix sum and means over 'data', the "
+               "experts' all-gather and gradient sums over 'expert')"),
+}
 
 
 def _as_tensor(v):

@@ -26,10 +26,13 @@ means depends on where its entries live:
   axis run in the gloo sub-group of the processes that differ only
   along it (`Mesh.group`).
 
-`check_mesh` takes the axes data, model, seq, fsdp and tp; pipe and
-expert wait for the second part of the model-parallel half of the
-multi-device slice (ROADMAP.md A.9). `PartitionSpec` and
-`NamedSharding` are the port's own types, with the JAX types' fields.
+`check_mesh` takes every axis of the JAX package: data, model, seq,
+pipe, expert, fsdp and tp. Across processes the `pipe` axis gives each
+process a contiguous block of a pipeline's stages (`stage_blocks`) and
+its neighbours along the axis (`Mesh.group(("pipe",))`, the members in
+stage order); the `expert` axis splits no input (parallel/moe.py).
+`PartitionSpec` and `NamedSharding` are the port's own types, with the
+JAX types' fields.
 """
 from __future__ import annotations
 
@@ -282,29 +285,18 @@ ALL_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, PIPE_AXIS, EXPERT_AXIS,
 
 
 def check_axes(sizes, what):
-    """MXNetError for an axis of {axis: size} that is not a mesh axis, or
-    for the pipe and expert axes at a size > 1 (the second part of the
-    model-parallel half of the multi-device slice, ROADMAP.md A.9)."""
+    """MXNetError for an axis of {axis: size} that is not a mesh axis."""
     unknown = [a for a in sizes if a not in ALL_AXES]
     if unknown:
         raise MXNetError(f"{what}: {unknown} are not mesh axes "
                          f"({list(ALL_AXES)})")
-    later = [a for a in sizes if a in (PIPE_AXIS, EXPERT_AXIS)
-             and int(sizes[a]) > 1]
-    if later:
-        raise MXNetError(
-            f"{what}: mesh axes {later} (pipeline and expert parallelism) "
-            "wait for the second part of the model-parallel half of the "
-            "multi-device slice (ROADMAP.md A.9)")
 
 
 def check_mesh(mesh, what):
     """The number of processes `mesh` spans, when `what` can use it: a
-    Mesh over the axes data, model, seq, fsdp and tp whose entries in
-    one process are one torch device, or across processes one entry a
-    process. MXNetError otherwise; the pipe and expert axes wait for the
-    second part of the model-parallel half of the multi-device slice
-    (ROADMAP.md A.9)."""
+    Mesh over mesh axes whose entries in one process are one torch
+    device, or across processes one entry a process. MXNetError
+    otherwise."""
     if not isinstance(mesh, Mesh):
         raise MXNetError(
             f"{what} takes a parallel.mesh.Mesh, not "
@@ -318,6 +310,20 @@ def check_mesh(mesh, what):
             f"{what}: a mesh of {mesh.size} entries over {nproc} "
             "processes; across processes each process is one entry")
     return nproc
+
+
+def stage_blocks(mesh, num_stages, axis=PIPE_AXIS):
+    """[(first, stop)] of the stages each member along `axis` holds, in
+    member order: across processes a contiguous block of
+    num_stages / size stages a process (MXNetError when the size does
+    not divide them), in one process every stage on its one device."""
+    size = mesh.shape.get(axis, 1) if mesh.process_count > 1 else 1
+    if num_stages % size:
+        raise MXNetError(
+            f"{num_stages} pipeline stages do not split into blocks over "
+            f"the {size} processes of mesh axis '{axis}'")
+    step = num_stages // size
+    return [(i * step, (i + 1) * step) for i in range(size)]
 
 
 def _local_devices(n):

@@ -223,6 +223,32 @@ def _logf32(u):
     return torch.where(u == float("inf"), u, r)
 
 
+_EXPF_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+           4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def expf32(x):
+    """Cephes's float32 expf as XLA's CPU backend runs it (each `_fma`
+    one rounding), results below float32's smallest normal flushed to 0
+    and above its largest to inf: jax.numpy.exp's bits on the host, on
+    any device (float64 work elementwise)."""
+    x = x.to(torch.float32)
+    c = torch.clamp(x, -87.8, 88.8)
+    fx = torch.floor(c * _f32(1.44269504088896341)[0] + 0.5)
+    r = _fma(fx, -0.693359375, c)
+    r = _fma(fx, _f32(2.12194440e-4)[0], r)
+    p = _f32(*_EXPF_P)
+    y = torch.full_like(r, p[0])
+    for k in p[1:]:
+        y = _fma(y, r, k)
+    y = _fma(y, r * r, r) + 1.0
+    y = torch.ldexp(y, fx.to(torch.int32)).to(torch.float32)
+    y = torch.where(y < 1.17549435e-38, torch.zeros_like(y), y)
+    y = torch.where(x > 88.72283935546875,
+                    torch.full_like(y, float("inf")), y)
+    return torch.where(torch.isnan(x), x, y)
+
+
 def _log1p32(x, one_plus_x=None):
     """XLA's float32 log1p on the CPU; `one_plus_x`, when XLA fused the
     sum 1 + x with the product that made x, is that sum."""

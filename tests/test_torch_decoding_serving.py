@@ -231,6 +231,9 @@ def test_import_rule():
         "import mxnet_tpu_torch.checkpoint_sharded\n"
         "import mxnet_tpu_torch.parallel.ring_attention\n"
         "import mxnet_tpu_torch.parallel.collective\n"
+        "import mxnet_tpu_torch.parallel.pipeline\n"
+        "import mxnet_tpu_torch.parallel.moe\n"
+        "import mxnet_tpu_torch.module.pipeline_module\n"
         "import pkgutil, importlib\n"
         "for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,\n"
         "                               'mxnet_tpu_torch.'):\n"

@@ -46,6 +46,16 @@ results back from an .npz file:
   process storing half the weight, and the sentinel's global rows the
   JAX package's (the maximum exact, the sums within 1e-6, as
   tests/test_numerics.py holds them across shardings).
+- pp (one launch, a module-scoped fixture): the PP half of
+  test_dist_model_parallel_two_workers (the nightly's 8-stage pipeline,
+  16 microbatches, 2 steps, 4 stages a worker, at its 5e-4/5e-5, then
+  an inference forward that takes no step); the MoE tower on {'data':
+  2} with tokens dropped, each worker its rows and the gating global,
+  and on {'expert': 2}, both against the JAX Module's one-process step
+  over the global batch (2e-4/2e-5), the ranks bit-equal; a tied
+  BatchNorm LM whose tied stages sit on different ranks and a pipeline
+  whose boundary carries two tensors, against the JAX package's
+  one-process PipelineModule (2e-4/2e-5), the tied copies bit-equal.
 """
 import json
 import os
@@ -426,3 +436,159 @@ def test_mp_dyadic_plan_parity_storage_and_sentinel(mp_run, tag, spec):
         np.testing.assert_array_equal(got[r][f"{tag}/rows"][:, 2],
                                       rows[:, 2])
         np.testing.assert_allclose(got[r][f"{tag}/rows"], rows, rtol=1e-6)
+
+
+# ------------------------------------------------ pipelines and experts
+PP_TOL = (5e-4, 5e-5)      # the nightly's (tests/nightly/
+#                            dist_model_parallel.py)
+MOE_TOL = (2e-4, 2e-5)
+
+
+@pytest.fixture(scope="module")
+def pp_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("pp")
+    return _launch("pp", out, retries=2)
+
+
+def _jax_batch_steps(mod, batches, rows=None):
+    for x, y in batches:
+        mod.forward_backward(jmx.io.DataBatch(data=[_jnd(x)],
+                                              label=[_jnd(y)]))
+        mod.update()
+
+
+def test_pp_nightly_pipeline_over_two_workers(pp_run):
+    """The PP half of test_dist_model_parallel_two_workers: the 8-stage
+    dryrun config, 16 microbatches, 2 steps, 4 stages a worker, against
+    the JAX package's one-process pipeline over its 8 devices."""
+    jbase = jmx.base
+    jbase._name_counters.clear()
+    pm = worker.pp_module(jmx, jmx.cpu())
+    losses = []
+    for x, y in worker.pp_batches():
+        pm.forward_backward(jmx.io.DataBatch(data=[_jnd(x)],
+                                             label=[_jnd(y)]))
+        pm.update()
+        losses.append(pm.loss_value)
+    want = pm.get_params()[0]["fc_weight"].asnumpy()
+    outs = pm.get_outputs()[0].asnumpy()
+    pm.forward(jmx.io.DataBatch(data=[_jnd(worker.pp_batches()[0][0])],
+                                label=None), is_train=False)
+    infer = pm.get_outputs()[0].asnumpy()
+    for r in pp_run:
+        np.testing.assert_allclose(r["pp/infer"], infer, rtol=PP_TOL[0],
+                                   atol=PP_TOL[1])
+        assert int(r["pp/t_after_infer"]) == worker.PP_STEPS
+        assert int(r["pp/local_stages"]) == worker.PP_STAGES // 2
+        np.testing.assert_allclose(r["pp/fc_weight"], want,
+                                   rtol=PP_TOL[0], atol=PP_TOL[1])
+        np.testing.assert_allclose(r["pp/outs"], outs, rtol=PP_TOL[0],
+                                   atol=PP_TOL[1])
+        np.testing.assert_allclose(r["pp/losses"], losses, rtol=PP_TOL[0])
+    for k in ("pp/fc_weight", "pp/outs", "pp/losses"):
+        np.testing.assert_array_equal(pp_run[0][k], pp_run[1][k])
+
+
+def _jax_moe(batch, batches):
+    jmx.base._name_counters.clear()
+    mod = worker.moe_module(jmx, jmx.cpu(), batch, None, "local")
+    _jax_batch_steps(mod, batches)
+    return mod
+
+
+def test_pp_moe_tower_on_data_axis_gates_globally(pp_run):
+    """{'data': 2}: each worker steps on its 4 rows, and the capacity,
+    the queue positions and the aux loss are those of both workers' 8
+    rows (tokens dropped): the JAX package's one-process step over the
+    global batch."""
+    mod = _jax_moe(2 * worker.MB, worker.moe_batches(2 * worker.MB))
+    want = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    outs = mod.get_outputs()[0].asnumpy()
+    aux = float(mod.get_outputs()[1].asnumpy())
+    for rank, r in enumerate(pp_run):
+        assert int(r["data/dropped"]) > 0 and int(r["data/batch_scale"]) == 2
+        for k in want:
+            np.testing.assert_allclose(r[f"data/{k}"], want[k],
+                                       rtol=MOE_TOL[0], atol=MOE_TOL[1],
+                                       err_msg=k)
+        rows = slice(rank * worker.MB, (rank + 1) * worker.MB)
+        np.testing.assert_allclose(r["data/outs"], outs[rows],
+                                   rtol=MOE_TOL[0], atol=MOE_TOL[1])
+        np.testing.assert_allclose(float(r["data/aux"]), aux,
+                                   rtol=MOE_TOL[0], atol=MOE_TOL[1])
+    for k in want:
+        np.testing.assert_array_equal(pp_run[0][f"data/{k}"],
+                                      pp_run[1][f"data/{k}"])
+
+
+def test_pp_moe_tower_on_expert_axis_ranks_bit_equal(pp_run):
+    """{'expert': 2}: the whole batch on both workers, each computing 2
+    of the 4 experts' FFN, the ranks bit-equal, the JAX package's step."""
+    mod = _jax_moe(2 * worker.MB, worker.moe_batches(2 * worker.MB))
+    want = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    for r in pp_run:
+        assert int(r["expert/computed"]) * 2 == int(r["expert/experts"])
+        assert int(r["expert/bytes"]) > 0
+        for k in want:
+            np.testing.assert_allclose(r[f"expert/{k}"], want[k],
+                                       rtol=MOE_TOL[0], atol=MOE_TOL[1],
+                                       err_msg=k)
+    for k in list(want) + ["outs"]:
+        np.testing.assert_array_equal(pp_run[0][f"expert/{k}"],
+                                      pp_run[1][f"expert/{k}"])
+
+
+def test_pp_tied_hetero_pipeline_across_ranks(pp_run):
+    """A 4-stage LM with a BatchNorm, its head tied to the embedding:
+    stage 0 on rank 0, stage 3 on rank 1, each rank binding its own
+    stages' executors alone. The copies stay bit-equal on
+    both ranks; parameters and moving statistics are the JAX package's
+    one-process pipeline's after 3 steps."""
+    jmx.base._name_counters.clear()
+    pm = worker.tied_module(jmx, jmx.cpu())
+    losses = []
+    for x, y in worker.tied_batches():
+        pm.forward_backward(jmx.io.DataBatch(data=[_jnd(x)],
+                                             label=[_jnd(y)]))
+        pm.update()
+        losses.append(pm.loss_value)
+    args, auxs = pm.get_params()
+    for rank, r in enumerate(pp_run):
+        assert int(r["tied/local_rows"]) == 2
+        # each rank binds executors for its own two stages alone
+        assert list(r["tied/bound_stages"]) == [2 * rank, 2 * rank + 1]
+        np.testing.assert_array_equal(r["tied/stage0/emb_weight"],
+                                      r["tied/stage3/head_weight"])
+        for k, v in args.items():
+            np.testing.assert_allclose(r[f"tied/{k}"], v.asnumpy(),
+                                       rtol=MOE_TOL[0], atol=MOE_TOL[1],
+                                       err_msg=k)
+        for k, v in auxs.items():
+            np.testing.assert_allclose(r[f"tied_aux/{k}"], v.asnumpy(),
+                                       rtol=MOE_TOL[0], atol=MOE_TOL[1],
+                                       err_msg=k)
+        np.testing.assert_allclose(r["tied/losses"], losses,
+                                   rtol=MOE_TOL[0])
+    np.testing.assert_array_equal(pp_run[0]["tied/stage0/emb_weight"],
+                                  pp_run[1]["tied/stage3/head_weight"])
+
+
+def test_pp_multi_boundary_pipeline_across_ranks(pp_run):
+    """Two boundary tensors (data, data1) cross from rank 0's stage to
+    rank 1's: parameters after 3 steps the JAX package's one-process
+    pipeline's (tests/test_pipeline_moe.py's multi-input case)."""
+    jmx.base._name_counters.clear()
+    pm = worker.multi_module(jmx, jmx.cpu())
+    losses = []
+    for x, y in worker.multi_batches():
+        pm.forward_backward(jmx.io.DataBatch(data=[_jnd(x)],
+                                             label=[_jnd(y)]))
+        pm.update()
+        losses.append(pm.loss_value)
+    want = {k: v.asnumpy() for k, v in pm.get_params()[0].items()}
+    for r in pp_run:
+        for k, v in want.items():
+            np.testing.assert_allclose(r[f"multi/{k}"], v, rtol=MOE_TOL[0],
+                                       atol=MOE_TOL[1], err_msg=k)
+        np.testing.assert_allclose(r["multi/losses"], losses,
+                                   rtol=MOE_TOL[0])

@@ -393,17 +393,31 @@ def test_supports_fused_is_the_jax_packages_set():
 
 
 def test_mesh_and_plan_refuse_naming_a9():
-    """The pipe and expert axes (the second part of A.9) are refused."""
+    """The pipe and expert axes (the second part of A.9, refused until
+    it was ported) are taken: a step over a one-process mesh with a pipe
+    axis is the plain step (one device's global program)."""
     from mxnet_tpu_torch.parallel import mesh as tmesh
     from mxnet_tpu_torch.parallel.dp_step import FusedTrainStep
 
+    rs = np.random.RandomState(0)
+    batch = {"data": torch.tensor(rs.rand(16, 20).astype(np.float32)),
+             "softmax_label": torch.tensor(
+                 rs.randint(0, 10, 16).astype(np.float32))}
     with tmx.cpu():
         mod = tmx.mod.Module(_mlp(tmx), context=tmx.cpu())
         mod.bind(data_shapes=[("data", (16, 20))],
                  label_shapes=[("softmax_label", (16,))])
         mod.init_params()
         mod.init_optimizer()
-        with pytest.raises(tmx.MXNetError, match="A.9"):
-            FusedTrainStep(mod._exec_group.execs[0], mod._optimizer,
-                           mod._param_names,
-                           mesh=tmesh.make_mesh({"data": 1, "pipe": 2}))
+        after = []
+        for mesh in (None, tmesh.make_mesh({"data": 1, "pipe": 2,
+                                            "expert": 2})):
+            fs = FusedTrainStep(mod._exec_group.execs[0], mod._optimizer,
+                                mod._param_names, mesh=mesh)
+            fs.step(dict(batch))
+            after.append({n: v.clone() for n, v in fs.params.items()})
+        assert dict(fs._mesh.shape) == {"data": 1, "pipe": 2, "expert": 2}
+        for n in after[0]:
+            assert torch.equal(after[0][n], after[1][n]), n
+
+

@@ -166,15 +166,19 @@ GRAD_OPS = sorted(set(LIBRARY_RECIPES) - set(SAMPLERS) - set(SOURCES))
 
 def test_every_op_of_the_slice_has_a_recipe():
     """Each canonical op the port registers beyond the earlier slices
-    and the vision ops (tests/test_torch_vision.py) has a recipe, and
-    the port refuses only MoEFFN."""
+    the vision ops (tests/test_torch_vision.py) and the parallel ops
+    (MoEFFN: tests/test_torch_pipeline_moe.py) has a recipe, and the
+    port refuses no op name of the JAX package."""
     vision = {op.name for op in treg._REGISTRY.values()
               if op.fn.__module__ == "mxnet_tpu_torch.ops.vision"}
-    new = _canonical_ops() - PRIOR_OPS - vision
+    parallel = {op.name for op in treg._REGISTRY.values()
+                if op.fn.__module__ == "mxnet_tpu_torch.ops.parallel_ops"}
+    new = _canonical_ops() - PRIOR_OPS - vision - parallel
     assert new == set(LIBRARY_RECIPES) | set(SAMPLERS)
     refused = set(jreg.list_ops()) - set(treg.list_ops())
-    assert refused == {"MoEFFN", "moe_ffn"}
+    assert refused == set()
     assert len(vision) == 14
+    assert parallel == {"RingAttention", "MoEFFN"}
 
 
 @pytest.mark.parametrize("name", GRAD_OPS)

@@ -49,6 +49,27 @@ def _reference_names():
     return {n for n in names if not n.startswith("_")} | {"__version__"}
 
 
+def _imported_names(rel):
+    """The names a JAX package module's `from ... import` lines bind."""
+    with open(os.path.join(ROOT, "mxnet_tpu", rel)) as f:
+        tree = ast.parse(f.read())
+    return {a.asname or a.name for node in tree.body
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+
+
+@pytest.mark.parametrize("rel,pkg", [("parallel/__init__.py", "parallel"),
+                                     ("module/__init__.py", "mod")])
+def test_parallel_and_module_exports_match_the_reference(rel, pkg):
+    """mx.parallel binds the JAX package's pipeline and MoE helpers and
+    mx.mod its PipelineModule: each name the JAX package's __init__
+    imports resolves on the port."""
+    ns = getattr(mx, pkg)
+    missing = sorted(n for n in _imported_names(rel) if not hasattr(ns, n))
+    assert not missing, f"{pkg}: {missing}"
+    assert callable(mx.parallel.pipeline_apply) and \
+        callable(mx.mod.PipelineModule)
+
+
 def test_top_level_names_match_the_reference():
     ref = _reference_names()
     missing = sorted(n for n in ref if not hasattr(mx, n))

@@ -16,7 +16,9 @@ after another. The same numpy-seeded inputs go through both packages:
   processes to half the weight's bytes);
 - ring and Ulysses attention against the JAX package's ring and dense
   attention (2e-4/2e-5) and their gradients (1e-3/1e-4);
-- tests/test_module_mesh.py's DP, SP+TP and unknown-axis cases and
+- tests/test_module_mesh.py (DP, SP+TP, MoE over {'data': 2,
+  'expert': 4}, the PipelineModule cases of both tiers, the unknown
+  axis; three cases' own JAX arithmetic in torch, `ADAPT`),
   tests/test_checkpoint_sharded.py and tests/test_model_parallel.py
   replayed; the SP+TP tower against the JAX Module after 3 steps
   (2e-4/2e-5); the dyadic sentinel rows of tests/test_numerics.py across
@@ -46,23 +48,60 @@ RING_TOL = (2e-4, 2e-5)
 GRAD_TOL = (1e-3, 1e-4)
 STEP_TOL = (2e-4, 2e-5)
 
-# reference cases that need several processes or the second part of A.9
+# reference cases that need several processes
 NOT_REPLAYED = {
     "test_sharding.py::test_dp_tp_fsdp_parity_and_storage":
         "storage needs processes: test_dp_tp_fsdp_parity_and_specs here, "
         "tests/test_torch_dist.py for the bytes",
-    "test_module_mesh.py::test_module_mesh_moe_transformer": "A.9 (MoE)",
-    "test_module_mesh.py::test_pipeline_module_trains": "A.9 (pipeline)",
-    "test_module_mesh.py::test_pipeline_module_matches_sequential":
-        "A.9 (pipeline)",
-    "test_module_mesh.py::test_pipeline_module_forward_is_pure_inference":
-        "A.9 (pipeline)",
-    "test_module_mesh.py::test_pipeline_hetero_lm_trains": "A.9 (pipeline)",
-    "test_module_mesh.py::test_pipeline_hetero_matches_unpipelined":
-        "A.9 (pipeline)",
-    "test_module_mesh.py::test_pipeline_hetero_batchnorm_aux":
-        "A.9 (pipeline)",
 }
+# the reference's own JAX arithmetic in three cases, in torch: its
+# reference compositions call `Executor._run_graph` in the JAX package's
+# argument order with jax arrays and differentiate with jax.grad, and a
+# JAX array read before a step is a snapshot (the port's step updates
+# its tensors in place, so the replay copies it)
+ADAPT = {"test_module_mesh.py": [
+    ("    before_np = np.asarray(before)\n",
+     "    before_np = np.array(before)\n"),
+    ("""            outs, _ = ex._run_graph(
+                {**args, "data": h}, {}, jax.random.PRNGKey(0), True)""",
+     """            outs, _ = ex._run_graph({**args, "data": h}, True,
+                                    aux_vals={}, rng=(0, 0))"""),
+    ("""    def loss(params, x, y):
+        logp = jax.nn.log_softmax(compose(params, x), axis=-1)
+        lab = jnp.asarray(y).astype(jnp.int32)
+        return -jnp.mean(jnp.take_along_axis(
+            logp, lab[..., None], axis=-1))
+
+    ref = {k: jnp.asarray(v) for k, v in init_host.items()}
+    gfn = jax.jit(jax.grad(loss))""",
+     """    def loss(params, x, y):
+        logp = torch.log_softmax(compose(params, x), dim=-1)
+        lab = torch.as_tensor(y).long()
+        return -torch.mean(torch.gather(logp, -1, lab[..., None]))
+
+    ref = {k: torch.as_tensor(v) for k, v in init_host.items()}
+
+    def gfn(params, x, y):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        grads = torch.autograd.grad(loss(leaves, x, y),
+                                    list(leaves.values()))
+        return {k: g.detach() for k, g in zip(leaves, grads)}"""),
+    ("""        h = jnp.asarray(x)
+        for s, ex in enumerate(execs):""",
+     """        h = torch.as_tensor(x)
+        for s, ex in enumerate(execs):"""),
+    ("""    import jax.numpy as jnp
+
+    ex1, ex2 = pm._stage_execs[0], pm._stage_execs[1]""",
+     """    import torch as jnp
+
+    ex1, ex2 = pm._stage_execs[0], pm._stage_execs[1]"""),
+    ("""        _, upd = ex2._run_graph(
+            {**args2, "data": h}, auxs, jax.random.PRNGKey(0), True)""",
+     """        _, upd = ex2._run_graph({**args2, "data": h}, True,
+                                aux_vals=auxs, rng=(0, 0))"""),
+]}
 REPLAYED_FILES = ("test_sharding.py", "test_module_mesh.py",
                   "test_checkpoint_sharded.py", "test_model_parallel.py")
 
@@ -93,11 +132,29 @@ def _cases():
 _NS = {}
 
 
+def _replay(f):
+    """`replay(f)` with the file's ADAPT replacements made first."""
+    if f not in ADAPT:
+        return replay(f)
+    from test_torch_ndarray import ROOT
+
+    path = ROOT / "tests" / f
+    src = path.read_text()
+    for old, new in ADAPT[f]:
+        assert old in src, (f, old)
+        src = src.replace(old, new)
+    src = src.replace("mxnet_tpu", "mxnet_tpu_torch")
+    ns = {"__name__": f"replay_{path.stem}", "__file__": str(path),
+          "torch": torch}
+    exec(compile(src, str(path), "exec"), ns)
+    return ns
+
+
 @pytest.mark.parametrize("case", _cases())
 def test_replayed(case, request, tmp_path):
     f, name = case.split("::")
     if f not in _NS:
-        _NS[f] = replay(f)
+        _NS[f] = _replay(f)
     fn = _NS[f][name]
     kw = {}
     params = inspect.signature(fn).parameters
@@ -320,10 +377,17 @@ def test_sp_tp_tower_matches_jax_after_three_steps():
 
 
 def test_mesh_axes_still_refused():
+    """Only an axis the JAX package does not name is refused: the pipe
+    and expert axes (refused until the second part of A.9) build the
+    fused step's mesh."""
     net = tmx.models.get_mlp(num_classes=5, hidden=(16, 8))
     for shape in ({"data": 2, "pipe": 2}, {"expert": 2}):
-        with pytest.raises(tmx.MXNetError, match="A.9"):
-            tmx.mod.Module(net, context=tmx.cpu(), mesh_shape=shape)
+        mod = tmx.mod.Module(net, context=tmx.cpu(), mesh_shape=shape)
+        mod.bind(data_shapes=[("data", (4, 20))],
+                 label_shapes=[("softmax_label", (4,))])
+        mod.init_params()
+        mod.init_optimizer()
+        assert dict(mod._fused_step._mesh.shape) == shape
     with pytest.raises(tmx.MXNetError, match="not mesh axes"):
         tmx.mod.Module(net, context=tmx.cpu(), mesh_shape={"rows": 2})
 

@@ -99,13 +99,34 @@ def test_internal_shapes_match():
 
 
 def test_moe_raises_clear_error():
-    with pytest.raises(MXNetError, match="MoEFFN is not ported.*ROADMAP"):
-        get_transformer(moe_every=1, num_experts=2, **TOWER)
-    jbase._name_counters.clear()
-    graph = jtransformer.get_transformer(moe_every=1, num_experts=2,
-                                         **TOWER).tojson()
-    with pytest.raises(MXNetError, match="MoEFFN is not ported.*ROADMAP"):
-        tmx.sym.loads(graph)
+    """The MoE tower (refused until the mixture of experts was ported):
+    byte-identical JSON, a JAX package graph that loads on the port, and
+    one forward of both heads from the same weights against the JAX
+    Module."""
+    jg, tg = _pair(moe_every=1, num_experts=2, **TOWER)
+    assert tg.tojson() == jg.tojson()
+    loaded = tmx.sym.loads(jg.tojson())
+    assert loaded.list_outputs() == tg.list_outputs() == \
+        ["regress_output", "moe_aux_output"]
+    rs = np.random.RandomState(8)
+    x = rs.uniform(-1, 1, (B, T, TOWER["d_model"])).astype(np.float32)
+    outs = []
+    for mx, g in ((jmx, jg), (tmx, tg)):
+        mod = mx.mod.Module(g, label_names=("label",), context=mx.cpu())
+        mod.bind(data_shapes=[("data", x.shape)],
+                 label_shapes=[("label", x.shape)], for_training=False)
+        if mx is jmx:
+            mod.init_params(jmx.initializer.Xavier())
+            init = mod.get_params()
+        else:
+            mod.init_params(tmx.initializer.Xavier())
+            mod.set_params(*params_from_jax(*init, ctx=tmx.cpu()))
+        mod.forward(mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.cpu())],
+                                    label=[mx.nd.array(x, ctx=mx.cpu())]),
+                    is_train=False)
+        outs.append([o.asnumpy() for o in mod.get_outputs()])
+    for j, t in zip(*outs):
+        np.testing.assert_allclose(t, j, rtol=OUT_TOL, atol=1e-6)
 
 
 # ------------------------------------------------------------------- ops

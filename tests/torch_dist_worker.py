@@ -5,7 +5,12 @@ CPU. tools/launch.py starts two of them:
 
 MODE is `sync` (KVStore dist_sync), `async` (dist_async, then rank 1
 dies and rank 0 counts it dead), `fused` (the fused step's data plane
-with run_steps, over a net with a BatchNorm) or `mp` (model parallelism
+with run_steps, over a net with a BatchNorm), `pp` (pipelines and
+experts: the nightly's 8-stage pipeline, 4 stages a worker; the MoE
+tower on {'data': 2} with tokens dropped and on {'expert': 2}; a tied
+LM pipeline with a BatchNorm whose tied stages sit on different ranks;
+a pipeline whose boundary carries two tensors)
+or `mp` (model parallelism
 over a mesh of the two processes: ring and Ulysses attention on
 sequence shards and on whole arrays, the SP+TP transformer tower on mesh
 {'seq': 2} with a sharded checkpoint saved, resumed and written for the
@@ -379,7 +384,237 @@ def run_mp(out):
     np.savez(os.path.join(out, f"mp-{rank}.npz"), **res)
 
 
+# the pp run: the nightly's 8-stage pipeline (tests/nightly/
+# dist_model_parallel.py run_pipeline), the MoE tower, the tied LM
+PP_STAGES, PP_MICRO, PP_BATCH, PP_STEPS = 8, 16, 32, 2
+MOE = dict(d_model=8, num_heads=2, d_ff=16, num_layers=2, causal=False,
+           moe_every=2, num_experts=4, capacity_factor=0.5)
+MB, MT, MOE_STEPS = 4, 8, 3      # each worker's rows on {'data': 2}
+LM_VOCAB, LM_D, LM_B, LM_T, LM_STEPS = 11, 6, 8, 4, 3
+
+
+def pp_stage(mx):
+    d = mx.sym.Variable("data")
+    return mx.sym.Activation(
+        mx.sym.FullyConnected(d, num_hidden=8, flatten=False,
+                              no_bias=True, name="fc"),
+        act_type="tanh", name="act")
+
+
+def pp_batches():
+    rs = np.random.RandomState(3)
+    return [(rs.rand(PP_BATCH, 2, 8).astype("float32"),
+             np.zeros((PP_BATCH, 2, 8), "float32"))
+            for _ in range(PP_STEPS)]
+
+
+def pp_module(mx, ctx):
+    pm = mx.mod.PipelineModule(pp_stage(mx), num_stages=PP_STAGES,
+                               num_microbatches=PP_MICRO, context=ctx)
+    pm.bind(data_shapes=[("data", (PP_BATCH, 2, 8))])
+    np.random.seed(13)
+    pm.init_params(mx.initializer.Xavier())
+    pm.init_optimizer(optimizer="sgd",
+                      optimizer_params=(("learning_rate", 0.05),))
+    return pm
+
+
+def moe_net(mx):
+    import importlib
+
+    return importlib.import_module(f"{mx.__name__}.models") \
+        .get_transformer(**MOE)
+
+
+def moe_init(mx, batch):
+    """The MoE tower's initial parameters (numpy-seeded)."""
+    rs = np.random.RandomState(17)
+    net = moe_net(mx)
+    shapes, _, _ = net.infer_shape(data=(batch, MT, MOE["d_model"]),
+                                   label=(batch, MT, MOE["d_model"]))
+    return {n: (rs.standard_normal(sh) * 0.3).astype(np.float32)
+            for n, sh in zip(net.list_arguments(), shapes)
+            if n not in ("data", "label")}
+
+
+def moe_batches(batch):
+    rs = np.random.RandomState(23)
+    return [(rs.uniform(-1, 1, (batch, MT, MOE["d_model"])).astype(
+                 np.float32),
+             rs.uniform(-1, 1, (batch, MT, MOE["d_model"])).astype(
+                 np.float32)) for _ in range(MOE_STEPS)]
+
+
+def moe_module(mx, ctx, batch, mesh_shape, kvstore):
+    mod = mx.mod.Module(moe_net(mx), label_names=("label",), context=ctx,
+                        mesh_shape=mesh_shape)
+    mod.bind(data_shapes=[("data", (batch, MT, MOE["d_model"]))],
+             label_shapes=[("label", (batch, MT, MOE["d_model"]))])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=ctx) for k, v in
+                                moe_init(mx, batch).items()},
+                    aux_params={}, force_init=True)
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.1),))
+    return mod
+
+
+def tied_lm_stages(mx):
+    """embedding -> FC + BatchNorm + tanh -> FC + tanh -> head, the head
+    weight tied to the embedding table: over two processes the tied
+    stages sit on different ranks."""
+    v = lambda: mx.sym.Variable("data")  # noqa: E731
+    emb = mx.sym.Embedding(v(), input_dim=LM_VOCAB, output_dim=LM_D,
+                           name="emb")
+    b1 = mx.sym.Activation(mx.sym.BatchNorm(mx.sym.FullyConnected(
+        v(), num_hidden=LM_D, flatten=False, no_bias=True, name="b1fc"),
+        name="bn"), act_type="tanh", name="b1act")
+    b2 = mx.sym.Activation(mx.sym.FullyConnected(
+        v(), num_hidden=LM_D, flatten=False, no_bias=True, name="b2fc"),
+        act_type="tanh", name="b2act")
+    head = mx.sym.FullyConnected(v(), num_hidden=LM_VOCAB, flatten=False,
+                                 no_bias=True, name="head")
+    return [emb, b1, b2, head]
+
+
+TIES = [("stage0/emb_weight", "stage3/head_weight")]
+
+
+def tied_batches():
+    rs = np.random.RandomState(29)
+    out = []
+    for _ in range(LM_STEPS):
+        x = rs.randint(0, LM_VOCAB, (LM_B, LM_T)).astype("float32")
+        out.append((x, (x + 1) % LM_VOCAB))
+    return out
+
+
+def tied_module(mx, ctx):
+    pm = mx.mod.PipelineModule(tied_lm_stages(mx), num_microbatches=4,
+                               context=ctx, loss="softmax_ce",
+                               tied_params=TIES)
+    pm.bind(data_shapes=[("data", (LM_B, LM_T))])
+    np.random.seed(31)
+    pm.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                         magnitude=1.0))
+    pm.init_optimizer(optimizer="sgd",
+                      optimizer_params=(("learning_rate", 0.5),))
+    return pm
+
+
+def multi_module(mx, ctx):
+    """tests/test_pipeline_moe.py's multi-input boundary: stage 0 emits
+    (tanh(fc(x)), x), stage 1 reads them as data and data1."""
+    data = mx.sym.Variable("data")
+    h = mx.sym.Activation(mx.sym.FullyConnected(
+        data, num_hidden=6, flatten=False, no_bias=True, name="s0fc"),
+        act_type="tanh")
+    s0 = mx.sym.Group([h, data])
+    s1 = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=6,
+                               flatten=False, no_bias=True, name="s1fc") \
+        + mx.sym.Variable("data1")
+    pm = mx.mod.PipelineModule([s0, s1], num_microbatches=4, context=ctx,
+                               loss="l2")
+    pm.bind(data_shapes=[("data", (8, 3, 6))])
+    np.random.seed(9)
+    pm.init_params(mx.initializer.Xavier())
+    pm.init_optimizer(optimizer="sgd",
+                      optimizer_params=(("learning_rate", 0.3),))
+    return pm
+
+
+def multi_batches():
+    rs = np.random.RandomState(5)
+    out = []
+    for _ in range(3):
+        x = rs.standard_normal((8, 3, 6)).astype("float32")
+        out.append((x, np.tanh(x)))
+    return out
+
+
+def pm_steps(mx, pm, batches, ctx):
+    losses = []
+    for x, y in batches:
+        pm.forward_backward(mx.io.DataBatch(
+            data=[mx.nd.array(x, ctx=ctx)], label=[mx.nd.array(y, ctx=ctx)]))
+        pm.update()
+        losses.append(pm.loss_value)
+    return losses
+
+
+def run_pp(out):
+    from mxnet_tpu_torch.parallel import collective, moe
+
+    kv = mx.kv.create("tpu")
+    rank = kv.rank
+    ctx = mx.cpu()
+    res = {}
+    # the nightly's pipeline: 8 stages, 4 a worker, every worker fed the
+    # same batch
+    pm = pp_module(mx, ctx)
+    res["pp/local_stages"] = pm.params["fc_weight"].shape[0]
+    res["pp/losses"] = pm_steps(mx, pm, pp_batches(), ctx)
+    res["pp/outs"] = pm.get_outputs()[0].asnumpy()
+    res.update({f"pp/{k}": v.asnumpy()
+                for k, v in pm.get_params()[0].items()})
+    # inference across the workers: no graph kept, no step taken
+    pm.forward(mx.io.DataBatch(data=[mx.nd.array(pp_batches()[0][0],
+                                                 ctx=ctx)], label=None),
+               is_train=False)
+    res["pp/infer"] = pm.get_outputs()[0].asnumpy()
+    res["pp/t_after_infer"] = pm._t
+    # the MoE tower on {'data': 2}: each worker its rows, the gating
+    # global (capacity, queue positions and aux over both workers' rows)
+    rows = slice(rank * MB, (rank + 1) * MB)
+    moe.reset_stats()
+    mod = moe_module(mx, ctx, MB, {"data": 2}, "tpu")
+    fs = mod._fused_step
+    for x, y in moe_batches(2 * MB):
+        mod.forward_backward(mx.io.DataBatch(
+            data=[mx.nd.array(x[rows], ctx=ctx)],
+            label=[mx.nd.array(y[rows], ctx=ctx)]))
+        mod.update()
+    res["data/outs"] = mod.get_outputs()[0].asnumpy()
+    res["data/aux"] = mod.get_outputs()[1].asnumpy()
+    res.update({f"data/{k}": v.asnumpy()
+                for k, v in mod.get_params()[0].items()})
+    res["data/dropped"] = moe.stats()["dropped"]
+    res["data/batch_scale"] = fs._batch_scale
+    res["data/uncaptured"] = str(fs.uncaptured_op)
+    # the MoE tower on {'expert': 2}: the whole batch on both workers,
+    # each computing 2 of the 4 experts
+    moe.reset_stats()
+    collective.reset_sent_bytes()
+    mod = moe_module(mx, ctx, 2 * MB, {"expert": 2}, "tpu")
+    for x, y in moe_batches(2 * MB):
+        mod.forward_backward(mx.io.DataBatch(
+            data=[mx.nd.array(x, ctx=ctx)], label=[mx.nd.array(y, ctx=ctx)]))
+        mod.update()
+    res["expert/outs"] = mod.get_outputs()[0].asnumpy()
+    res.update({f"expert/{k}": v.asnumpy()
+                for k, v in mod.get_params()[0].items()})
+    st = moe.stats()
+    res["expert/computed"] = st["experts_computed"]
+    res["expert/experts"] = st["experts"]
+    res["expert/bytes"] = sum(collective.sent_bytes().values())
+    # the tied LM over two workers: the tied stages on different ranks
+    pm = tied_module(mx, ctx)
+    res["tied/losses"] = pm_steps(mx, pm, tied_batches(), ctx)
+    args, auxs = pm.get_params()
+    res.update({f"tied/{k}": v.asnumpy() for k, v in args.items()})
+    res.update({f"tied_aux/{k}": v.asnumpy() for k, v in auxs.items()})
+    res["tied/local_rows"] = pm.params["pipeline_flat"].shape[0]
+    res["tied/bound_stages"] = [s for s, ex in enumerate(pm._stage_execs)
+                                if ex is not None]
+    # two boundary tensors (data, data1) crossing between the workers
+    pm = multi_module(mx, ctx)
+    res["multi/losses"] = pm_steps(mx, pm, multi_batches(), ctx)
+    res.update({f"multi/{k}": v.asnumpy()
+                for k, v in pm.get_params()[0].items()})
+    kv._barrier()
+    np.savez(os.path.join(out, f"pp-{rank}.npz"), **res)
+
+
 if __name__ == "__main__":
     mode, out = sys.argv[1], sys.argv[2]
     {"sync": run_sync, "async": run_async, "fused": run_fused,
-     "mp": run_mp}[mode](out)
+     "mp": run_mp, "pp": run_pp}[mode](out)
