@@ -469,6 +469,43 @@ each of which exits non-zero on failure:
                   of the parameters between them; B1 and B2 4 and 80
                   a step summed over the workers (a `pipe_expert:
                   {...}` summary line)
+ 22. bundles      (runs inside phase 16, while its served model is warm;
+                  serving/bundle.py, exec_cache_disk.py, fault.py) (a)
+                  save_bundle of phase 16's Inception-ResNet-v2 (half
+                  depth, batch buckets 1, 2, 4, 8, float32: a record a
+                  bind with its generated B1/B2 libraries) and of a
+                  DecodedModel at the docs/serving.md width on phase
+                  16's weights, kv_dtype int8, quantize="int8" (max_batch
+                  2, 256 pages, page buckets 8 and 40): sizes, save and
+                  hash times, content hashes; the int8 params.npz under
+                  0.3 of the float32 weights. (b) the parent's outputs
+                  at batch buckets 1 and 8, and 4 greedy requests (32,
+                  128, 320 and 512 prompt tokens, 32 new) on the decoder
+                  with the bundle's dequantized weights copied into its
+                  parameters in place (its float32 weights restored
+                  after; their top-1 agreement with the float32 streams
+                  reported). (c) a fresh process (this script's copy
+                  beside a copy of mxnet_tpu_torch/ with no _build/, no
+                  nvcc on PATH, no CUDA_HOME, started with the script,
+                  importing after phase 1 and waiting for its go) restores
+                  both through
+                  ModelServer.load_bundle: 0 plans built, 0 nvcc runs,
+                  0 compiles, a disk hit a served bind, disk loads, every
+                  library loaded from the bundles' exec_cache/, the
+                  served outputs bit for bit, the streams token for
+                  token, B1/B2 and B5 launched; its times to the first
+                  answer beside phase 16's load and warmup and phase 1's
+                  builds. (d) (started with (a), in two processes of
+                  their own) the examples' MLP (784-128-64-10) through
+                  fit_auto_resume over a seeded data pipeline, 3 epochs
+                  of 16 batches, with deterministic algorithms: one
+                  killed by kill:step:24 (-SIGKILL, no finally or
+                  atexit), one resuming its files to the end, whose
+                  batches after the killed ones are the uninterrupted
+                  run's and whose parameters equal, bit for bit, the
+                  same schedule run with the 'step:24' exception and a
+                  resume in one process (a `bundles: {...}` summary
+                  line)
 
 Phases 6, 9, 11, 12, 13, 17 and 18 train through the fused step, each
 step after its first a replay of one captured CUDA graph (phase 10's
@@ -482,11 +519,11 @@ versions).
 
 The last two lines of standard output are
 one JSON object with every kernel's numbers and one JSON object naming
-the device; the summary lines of phases 17, 18, 11, 16, 12, 13, 14, 15
+the device; the summary lines of phases 17, 18, 11, 16, 22, 12, 13, 14, 15
 19 and 20 (`fused: {...}`, `pipeline: {...}`, `surface: {...}`,
-`one_shot: {...}`, `lm: {...}`, `vision: {...}`, `decode: {...}`,
-`bucketing: {...}`, `data_parallel: {...}`, `model_parallel: {...}`)
-come before them.
+`one_shot: {...}`, `bundles: {...}`, `lm: {...}`, `vision: {...}`,
+`decode: {...}`, `bucketing: {...}`, `data_parallel: {...}`,
+`model_parallel: {...}`) come before them.
 """
 from __future__ import annotations
 
@@ -4731,10 +4768,13 @@ def _one_shot_decode(torch, mx, server, decoder, cfg, serving3):
             "captures": model.engine.traces()}
 
 
-def phase_one_shot(torch, mx, trained, decoder, cfg, serving3, card):
+def phase_one_shot(torch, mx, trained, decoder, cfg, serving3, card,
+                   bundles=None):
     """Phase 16 (module docstring): one-shot serving of
     Inception-ResNet-v2 with phase 6's weights, the telemetry exporter
-    and profile dump, and phase 3's decoder behind the same server."""
+    and profile dump, and phase 3's decoder behind the same server.
+    `bundles(model, images, parts)` (phase 22) runs while the served
+    model is still warm, before the server stops."""
     import shutil
 
     from mxnet_tpu_torch import exec_cache, passes
@@ -4858,6 +4898,8 @@ def phase_one_shot(torch, mx, trained, decoder, cfg, serving3, card):
         # (c) the decoder behind the same server
         decode = _one_shot_decode(torch, mx, server, decoder, cfg, serving3)
         part("decode")
+        if bundles is not None:
+            res["bundles"] = bundles(model, images, dict(timing["parts_s"]))
         server.stop()
         tel.stop_exporter()
     finally:
@@ -7751,6 +7793,633 @@ def phase_pipe_expert(torch, mx, card, dp):
 
 
 # -------------------------------------------------------------- main
+# ----------------------------------------------------------- phase 22
+BUNDLE_PAGES = 256
+BUNDLE_PAGE_BUCKETS = (8, 40)      # a 512-token prompt and 32 new tokens
+BUNDLE_PROMPT_LENS = (32, 128, 320, 512)
+BUNDLE_DECODE_NEW = 32
+BUNDLE_SERVE_BATCHES = (1, 8)
+BUNDLE_SEED = 22
+BUNDLE_DEVICE = "cuda"
+BUNDLE_WORKER_TIMEOUT = 300        # each worker's part, after its go
+BUNDLE_GO_TIMEOUT = 1150
+FAULT_ROWS = 1024
+FAULT_WIDTHS = (784, 128, 64, 10)  # the examples' MLP (mlp.py, get_mlp)
+FAULT_BATCH = 64                   # 16 batches an epoch
+FAULT_EPOCHS = 3
+FAULT_KILL_STEP = 24               # epoch 1, after its 8th batch
+FAULT_LR = 0.1
+
+
+def _bundle_config():
+    return {"device": BUNDLE_DEVICE, "parent": os.getpid(),
+            "decode_new": BUNDLE_DECODE_NEW,
+            "serve_batches": list(BUNDLE_SERVE_BATCHES),
+            "fault": {"rows": FAULT_ROWS, "widths": list(FAULT_WIDTHS),
+                      "batch": FAULT_BATCH, "epochs": FAULT_EPOCHS,
+                      "kill_step": FAULT_KILL_STEP, "lr": FAULT_LR,
+                      "seed": BUNDLE_SEED}}
+
+
+def _worker_env(drop_nvcc):
+    """The environment of a phase 22 worker: no disk root of the exec
+    cache; for the restore worker no nvcc on PATH and no CUDA_HOME; for
+    the fault workers the cuBLAS workspace deterministic algorithms
+    need."""
+    env = dict(os.environ)
+    env.pop("MXNET_EXEC_CACHE_DIR", None)
+    env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    if drop_nvcc:
+        for var in ("CUDA_HOME", "CUDA_PATH"):
+            env.pop(var, None)
+        env["PATH"] = os.pathsep.join(
+            d for d in env.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc")))
+    return env
+
+
+def _start_bundle_workers():
+    """Phase 22's three workers, started with the script at a lower
+    priority: each waits for the go to import (given after phase 1's
+    builds, which the host's cores are busy with), imports, and waits
+    for its phase 22 go. The restore worker runs this script's copy
+    beside a copy of mxnet_tpu_torch/ with no _build/, and the two fault
+    workers run fit_auto_resume (one killed, one resuming). Returns
+    (processes, their directory)."""
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="chip_smoke_bundles_")
+    atexit.register(shutil.rmtree, out, True)
+    with open(os.path.join(out, "config.json"), "w") as f:
+        json.dump(_bundle_config(), f)
+    pkg = os.path.join(out, "pkg")
+    shutil.copytree(os.path.join(root, "mxnet_tpu_torch"),
+                    os.path.join(pkg, "mxnet_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(os.path.abspath(__file__), pkg)
+    procs = {}
+    for name, cmd, cwd, env in (
+            ("restore", [os.path.join(pkg, "chip_smoke.py"),
+                         "--restore-worker", out], pkg, _worker_env(True)),
+            ("kill", [os.path.abspath(__file__), "--fault-worker", out,
+                      "kill"], root, _worker_env(False)),
+            ("resume", [os.path.abspath(__file__), "--fault-worker", out,
+                        "resume"], root, _worker_env(False))):
+        procs[name] = subprocess.Popen(
+            [sys.executable, *cmd], cwd=cwd, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+    atexit.register(_stop_bundle_workers, procs)
+    return procs, out
+
+
+def _stop_bundle_workers(procs):
+    import signal
+
+    for proc in procs.values():
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.communicate()
+
+
+def _wait_go(out, name, cfg):
+    t = time.perf_counter()
+    go = os.path.join(out, name)
+    while not os.path.exists(go):
+        check(time.perf_counter() - t < BUNDLE_GO_TIMEOUT,
+              f"phase 22's parent never wrote {name}")
+        try:
+            os.kill(cfg["parent"], 0)
+        except ProcessLookupError:
+            fail("the script that started this worker has ended")
+        time.sleep(0.02)
+    return time.perf_counter() - t
+
+
+def _go(out, name):
+    with open(os.path.join(out, name), "w"):
+        pass
+
+
+def _finish_worker(proc, name):
+    try:
+        stdout, stderr = proc.communicate(timeout=BUNDLE_WORKER_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        _stop_bundle_workers({name: proc})
+        fail(f"phase 22's {name} worker did not finish in "
+             f"{BUNDLE_WORKER_TIMEOUT} s")
+    return proc.returncode, stdout, stderr
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _restore_worker(out):
+    """Phase 22 (c), in a fresh process: this script's copy beside a
+    copy of the package with no _build/, no nvcc reachable. Restores both
+    bundles through ModelServer.load_bundle after the go, serves the
+    parent's inputs and writes what it counted into out/restore.json and
+    its outputs into out/restore.npz."""
+    os.nice(10)
+    with open(os.path.join(out, "config.json")) as f:
+        cfg = json.load(f)
+    _wait_go(out, "go-import", cfg)
+    t_start = time.perf_counter()
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import exec_cache, kernels, passes
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.decoding import attention
+    from mxnet_tpu_torch.profiling import device_stats
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    check(os.path.dirname(os.path.abspath(mx.__file__))
+          == os.path.join(here, "mxnet_tpu_torch"),
+          f"the restore worker imported {mx.__file__}, not its copy")
+    check(not os.path.exists(kernels.BUILD_DIR),
+          f"the package's copy has a {kernels.BUILD_DIR}")
+
+    def no_nvcc():
+        raise MXNetError("the restore worker runs no nvcc")
+
+    kernels.nvcc_path = no_nvcc
+    if cfg["device"] != "cpu":
+        # the card's context, cuDNN and cuBLAS, as any process's start
+        # pays them (counted in start_s, before the go)
+        x = torch.ones(1, 3, 8, 8, device="cuda")
+        torch.nn.functional.conv2d(x, torch.ones(4, 3, 3, 3, device="cuda"))
+        x.flatten(1) @ torch.ones(192, 4, device="cuda")
+        torch.cuda.synchronize()
+    res = {"start_s": time.perf_counter() - t_start}
+    res["wait_s"] = _wait_go(out, "go-restore", cfg)
+    with open(os.path.join(out, "restore-config.json")) as f:
+        job = json.load(f)
+    inputs = np.load(os.path.join(out, "inputs.npz"))
+    ctx = mx.cpu() if cfg["device"] == "cpu" else mx.gpu(0)
+    t0 = time.perf_counter()
+    server = mx.serving.ModelServer(max_batch=max(cfg["serve_batches"]))
+    try:
+        with ctx:
+            served = server.load_bundle(job["served"])
+        res["served_ready_s"] = time.perf_counter() - t0
+        outs = {}
+        for b in cfg["serve_batches"]:
+            outs[f"served{b}"] = np.asarray(served.infer(
+                {"data": inputs["images"][:b]}, b, 0)[0])
+        res["served_first_answer_s"] = time.perf_counter() - t0
+        served_stats = exec_cache.cache_stats()
+        t1 = time.perf_counter()
+        with ctx:
+            lm = server.load_bundle(job["decoded"])
+        res["decoder_ready_s"] = time.perf_counter() - t1
+        res["decoder_traces"] = lm.engine.traces()
+        prompts = [list(map(int, inputs[f"prompt{i}"]))
+                   for i in range(len(job["prompt_lens"]))]
+        streams = []
+        for i, p in enumerate(prompts):
+            streams.append(lm.generate(p, max_new_tokens=cfg["decode_new"],
+                                       timeout=600))
+            if i == 0:
+                res["decoder_first_stream_s"] = time.perf_counter() - t1
+        res["streams"] = streams
+        res["decoder_traces_after"] = lm.engine.traces()
+        res["kv_dtype"] = lm.engine.kv_dtype
+    finally:
+        server.stop()
+    s = exec_cache.cache_stats()
+    stats = device_stats()
+    totals = stats.get("totals", {})
+    recs = stats.get("executables", {}).values()
+    res.update({
+        # bind plans built here (a restored one is a disk load), and the
+        # decoder's graphs captured at warmup (a graph is not serialized)
+        "bind_builds": sum(r["executables"] - r.get("disk_loads", 0)
+                           for r in recs if r["kind"] == "bind"),
+        "bind_restore_s": sum(r["compile_s"] for r in recs
+                              if r["kind"] == "bind"),
+        "graph_captures": sum(r["executables"] for r in recs
+                              if r["kind"] != "bind"),
+        "traces": s["traces"], "misses": s["misses"],
+        "disk_hits": s["disk_hits"], "disk_stale": s["disk_stale"],
+        "disk_quarantined": s["disk_quarantined"],
+        "exe_loads": s["exe_loads"],
+        "served_binds": len(served._by_bucket),
+        "served_disk_hits": served_stats["disk_hits"],
+        "compiles": totals.get("compiles", 0),
+        "disk_loads": totals.get("disk_loads", 0),
+        "nvcc_runs": kernels.nvcc_runs(),
+        "loaded": kernels.loaded(),
+        "codegen_launches": passes.launch_counts(),
+        "paged_launches": attention.launch_counts(),
+        "process_s": time.perf_counter() - t_start})
+    np.savez(os.path.join(out, "restore.npz"), **outs)
+    with open(os.path.join(out, "restore.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _fault_arrays(fc):
+    rs = np.random.RandomState(fc["seed"])
+    x = rs.rand(fc["rows"], fc["widths"][0]).astype(np.float32)
+    w = rs.randn(fc["widths"][0], fc["widths"][-1]).astype(np.float32)
+    y = np.argmax(x @ w, axis=1).astype(np.float32)
+    return x, y
+
+
+def _fault_net(mx, widths):
+    h = mx.sym.Variable("data")
+    for i, n in enumerate(widths[1:]):
+        h = mx.sym.FullyConnected(h, num_hidden=n, name=f"fc{i + 1}")
+        if i < len(widths) - 2:
+            h = mx.sym.Activation(h, act_type="relu", name=f"relu{i + 1}")
+    return mx.sym.SoftmaxOutput(h, name="softmax")
+
+
+def _fault_fit(mx, fault, data, fc, ctx, arrays, prefix, log_path, spec):
+    """fit_auto_resume of the MLP over a seeded data pipeline with the
+    resume protocol; each batch's sha1 appended to `log_path` as it is
+    taken (so a killed run leaves its log). Returns the parameters."""
+    import hashlib
+
+    x, y = arrays
+
+    class Logged:
+        def __init__(self, inner):
+            self._inner = inner
+
+        def __getattr__(self, name):
+            return getattr(self._inner, name)
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            return self.next()
+
+        def next(self):
+            b = self._inner.next()
+            with open(log_path, "a") as f:
+                f.write(hashlib.sha1(
+                    b.data[0].asnumpy().tobytes()).hexdigest() + "\n")
+                f.flush()
+            return b
+
+    mx.random.seed(fc["seed"])
+    it = Logged(data.make_pipeline(x, fc["batch"], label=y, ctx=ctx,
+                                   seed=fc["seed"], shard_id=0,
+                                   num_shards=1))
+    mod = mx.mod.Module(_fault_net(mx, fc["widths"]), context=ctx)
+    try:
+        fault.fit_auto_resume(
+            mod, it, prefix, num_epoch=fc["epochs"],
+            fault_injector=fault.FaultInjector(spec), optimizer="sgd",
+            optimizer_params={"learning_rate": fc["lr"]})
+    finally:
+        it._inner.close()
+    arg, aux = mod.get_params()
+    return {k: v.asnumpy() for k, v in {**arg, **aux}.items()}
+
+
+def _fault_worker(out, mode):
+    """Phase 22 (d), one of two fresh processes with deterministic
+    algorithms: "kill" runs fit_auto_resume until kill:step:N takes it
+    down by SIGKILL (its finally and atexit markers must not print);
+    "resume", meanwhile, runs the uninterrupted reference and the same
+    schedule with the 'step:N' exception in place of the kill and a
+    resume in this process, then, after the parent's word that the kill
+    happened, resumes the killed run from its files."""
+    os.nice(10)
+    with open(os.path.join(out, "config.json")) as f:
+        cfg = json.load(f)
+    fc = cfg["fault"]
+    _wait_go(out, "go-import", cfg)
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.allow_tf32 = False
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import data, fault
+
+    arrays = _fault_arrays(fc)
+    ctx = mx.cpu() if cfg["device"] == "cpu" else mx.gpu(0)
+    killed = os.path.join(out, "fault-killed")
+    _wait_go(out, "go-fault", cfg)
+    if mode == "kill":
+        atexit.register(lambda: print("ATEXIT-RAN", flush=True))
+        try:
+            _fault_fit(mx, fault, data, fc, ctx, arrays,
+                       os.path.join(killed, "run"),
+                       os.path.join(out, "log-kill.txt"),
+                       f"kill:step:{fc['kill_step']}")
+        finally:
+            print("FINALLY-RAN", flush=True)
+        print("SURVIVED", flush=True)
+        return
+    res, params = {}, {}
+    t = time.perf_counter()
+    params["ref"] = _fault_fit(mx, fault, data, fc, ctx, arrays,
+                               os.path.join(out, "fault-ref", "run"),
+                               os.path.join(out, "log-ref.txt"), "")
+    res["reference_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    raised = os.path.join(out, "fault-raise", "run")
+    try:
+        _fault_fit(mx, fault, data, fc, ctx, arrays, raised,
+                   os.path.join(out, "log-raise.txt"),
+                   f"step:{fc['kill_step']}")
+        fail("the 'step:N' fault did not fire")
+    except RuntimeError as e:
+        check("fault-injection" in str(e), f"unexpected error {e}")
+    params["raise"] = _fault_fit(mx, fault, data, fc, ctx, arrays, raised,
+                                 os.path.join(out, "log-raise.txt"), "")
+    res["raise_resume_s"] = time.perf_counter() - t
+    _wait_go(out, "go-resume", cfg)
+    t = time.perf_counter()
+    params["resume"] = _fault_fit(mx, fault, data, fc, ctx, arrays,
+                                  os.path.join(killed, "run"),
+                                  os.path.join(out, "log-resume.txt"), "")
+    res["resume_s"] = time.perf_counter() - t
+    np.savez(os.path.join(out, "fault.npz"),
+             **{f"{k}:{n}": v for k, p in params.items()
+                for n, v in p.items()})
+    with open(os.path.join(out, "fault.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _start_fault(out):
+    """(d), first half: go to both fault workers (the kill run and the
+    references run beside (a) and (b))."""
+    for name in ("fault-killed", "fault-ref", "fault-raise"):
+        os.makedirs(os.path.join(out, name), exist_ok=True)
+    _go(out, "go-fault")
+
+
+def _bundle_fault(out, procs, fc):
+    """(d), second half: the kill worker must have died by SIGKILL with
+    no teardown, leaving the data state at its step; then the resume
+    worker resumes its files. The logs and parameters they leave,
+    against each other."""
+    import signal
+
+    from mxnet_tpu_torch import data, fault
+
+    t_wait = time.perf_counter()
+    prefix = os.path.join(out, "fault-killed", "run")
+    rc, stdout, stderr = _finish_worker(procs["kill"], "kill")
+    check(rc == -signal.SIGKILL,
+          f"the kill worker ended with {rc}, not -SIGKILL: {stderr[-3000:]}")
+    for marker in ("FINALLY-RAN", "ATEXIT-RAN", "SURVIVED"):
+        check(marker not in stdout, f"the killed worker printed {marker}")
+    per_epoch = fc["rows"] // fc["batch"]
+    state = data.read_state(fault.data_state_path(prefix))
+    check(state is not None and state["epoch"]
+          == fc["kill_step"] // per_epoch
+          and state["position"] == fc["kill_step"] % per_epoch,
+          f"data state after the kill {state}")
+    check(fault.latest_checkpoint(prefix) == fc["kill_step"] // per_epoch,
+          f"checkpoint after the kill {fault.latest_checkpoint(prefix)}")
+    _go(out, "go-resume")
+    rc, stdout, stderr = _finish_worker(procs["resume"], "resume")
+    check(rc == 0, f"the resume worker failed: {stderr[-3000:]}")
+    with open(os.path.join(out, "fault.json")) as f:
+        res = json.load(f)
+
+    def log(name):
+        with open(os.path.join(out, f"log-{name}.txt")) as f:
+            return f.read().split()
+
+    logs = {n: log(n) for n in ("kill", "resume", "ref", "raise")}
+    check(len(logs["kill"]) == fc["kill_step"],
+          f"the killed run took {len(logs['kill'])} batches")
+    check(logs["kill"] + logs["resume"] == logs["ref"],
+          "killed + resumed batches are not the uninterrupted run's")
+    check(logs["raise"] == logs["ref"],
+          "the in-process raise and resume took other batches")
+    z = np.load(os.path.join(out, "fault.npz"))
+    names = sorted(k.split(":", 1)[1] for k in z.files
+                   if k.startswith("ref:"))
+    same = all(np.array_equal(z[f"resume:{n}"], z[f"raise:{n}"])
+               for n in names)
+    check(same, "the resumed parameters differ from the same schedule run "
+          "without a kill")
+    lost = max(float(np.abs(z[f"resume:{n}"] - z[f"ref:{n}"]).max()
+                   / max(float(np.abs(z[f"ref:{n}"]).max()), 1e-30))
+               for n in names)
+    res.update({"killed_rc": -signal.SIGKILL,
+                "batches_killed": len(logs["kill"]),
+                "batches_resumed": len(logs["resume"]),
+                "batches_uninterrupted": len(logs["ref"]),
+                "resume_vs_same_schedule": 0.0,
+                "resume_vs_uninterrupted_rel": lost,
+                "after_restore_s": time.perf_counter() - t_wait})
+    return res
+
+
+def phase_bundles(torch, mx, served, decoder, cfg, card, workers,
+                  images, one_shot_parts, build_s):
+    """Phase 22 (module docstring): bundles of phase 16's warm served
+    model and of an int8 decoder at the serving width, restored in a
+    fresh process that builds no plan and runs no nvcc; fit_auto_resume
+    killed by SIGKILL and resumed."""
+    import shutil
+
+    from mxnet_tpu_torch import decoding as dec
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.serving import bundle as sb
+    from mxnet_tpu_torch.serving import quant as sq
+
+    procs, out = workers
+    timing = {}
+    part = _parts(timing)
+    res = {}
+    tmp = os.path.join(out, "bundles")
+    os.makedirs(tmp)
+    dev = torch.device(BUNDLE_DEVICE)
+    saved_cudnn = (torch.backends.cudnn.deterministic,
+                   torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    # (d)'s runs are small: they go beside (a) and (b), on their own
+    _start_fault(out)
+    try:
+        # (a) save: the served model as phase 16 warmed it
+        t = time.perf_counter()
+        served_dir = sb.save_bundle(served, os.path.join(tmp, "irv2"))
+        res["served_save_s"] = time.perf_counter() - t
+        part("save_served")
+        # the int8 decoder at the serving width, on phase 16's weights
+        t = time.perf_counter()
+        lm = dec.DecodedModel(
+            "lm8", 1, decoder, cfg, max_batch=2, num_pages=BUNDLE_PAGES,
+            page_buckets=BUNDLE_PAGE_BUCKETS, kv_dtype="int8",
+            prefix_cache=False, device=dev)
+        res["decoder_warmup_s"] = time.perf_counter() - t
+        res["decoder_traces_parent"] = lm.engine.traces()
+        part("decoder_warmup")
+        try:
+            t = time.perf_counter()
+            decoded_dir = sb.save_bundle(lm, os.path.join(tmp, "lm8"),
+                                         quantize="int8")
+            res["decoded_save_s"] = time.perf_counter() - t
+            part("save_decoded")
+            for key, path in (("served", served_dir),
+                              ("decoded", decoded_dir)):
+                manifest = sb.read_manifest(path)
+                with np.load(os.path.join(path, sb.PARAMS)) as z:
+                    stored = {k: z[k] for k in z.files}
+                t = time.perf_counter()
+                digest = sb.param_content_hash(stored)
+                check(digest == manifest["params"]["content_hash"],
+                      f"{key} bundle's content hash")
+                res[key] = {
+                    "bytes": _dir_bytes(path),
+                    "params_bytes": os.path.getsize(
+                        os.path.join(path, sb.PARAMS)),
+                    "exec_cache_bytes": _dir_bytes(
+                        os.path.join(path, sb.EXEC_CACHE)),
+                    "hash_s": time.perf_counter() - t,
+                    "content_hash": digest,
+                    "programs": len(manifest["programs"]),
+                    "libraries": sorted({p["kind"] for p in
+                                         manifest["programs"]
+                                         if p["kind"] != "record"})}
+                if key == "decoded":
+                    qrec = manifest["quantization"]
+                    deq = sq.dequantize_params(stored, qrec)
+            f32_bytes = 4 * sum(p.numel() for p in decoder.parameters())
+            res["decoded"]["float32_weights_bytes"] = f32_bytes
+            res["decoded"]["params_over_float32"] = \
+                res["decoded"]["params_bytes"] / f32_bytes
+            check(res["decoded"]["params_bytes"] < 0.3 * f32_bytes,
+                  f"the int8 bundle's params.npz "
+                  f"{res['decoded']['params_bytes']} B is not about a "
+                  f"quarter of the float32 weights' {f32_bytes} B")
+            check(len(res["served"]["libraries"]) > 0
+                  and res["decoded"]["libraries"] == ["paged_attention"],
+                  f"the bundles' libraries {res['served']['libraries']} "
+                  f"{res['decoded']['libraries']}")
+            part("hash")
+
+            # (b) the parent's reference outputs
+            rs = np.random.RandomState(BUNDLE_SEED)
+            prompts = [rs.randint(2, cfg.vocab, size=n).tolist()
+                       for n in BUNDLE_PROMPT_LENS]
+            feeds = {"images": images[:max(BUNDLE_SERVE_BATCHES)]}
+            feeds.update({f"prompt{i}": np.asarray(p, np.int32)
+                          for i, p in enumerate(prompts)})
+            np.savez(os.path.join(out, "inputs.npz"), **feeds)
+            want = {b: np.asarray(served.infer(
+                {"data": feeds["images"][:b]}, b, 0)[0])
+                for b in BUNDLE_SERVE_BATCHES}
+            f32 = [lm.generate(p, max_new_tokens=BUNDLE_DECODE_NEW,
+                               timeout=600) for p in prompts]
+            original = {n: p.detach().clone() for n, p in
+                        lm.engine.model.named_parameters()}
+            lm.engine.model.load_flat(deq)   # in place: the graphs read it
+            q8 = [lm.generate(p, max_new_tokens=BUNDLE_DECODE_NEW,
+                              timeout=600) for p in prompts]
+            with torch.no_grad():
+                for n, p in lm.engine.model.named_parameters():
+                    p.copy_(original[n])
+            del original, deq
+            agree = sum(a == b for s, r in zip(q8, f32)
+                        for a, b in zip(s, r)) / sum(map(len, f32))
+            res["int8_weights_top1_agreement"] = agree
+            part("references")
+        finally:
+            lm.close()
+
+        # (c) the restore, in the fresh process
+        with open(os.path.join(out, "restore-config.json"), "w") as f:
+            json.dump({"served": served_dir, "decoded": decoded_dir,
+                       "prompt_lens": list(BUNDLE_PROMPT_LENS)}, f)
+        t = time.perf_counter()
+        _go(out, "go-restore")
+        rc, stdout, stderr = _finish_worker(procs["restore"], "restore")
+        res["restore_wall_s"] = time.perf_counter() - t
+        check(rc == 0, f"the restore worker failed: {stderr[-4000:]}")
+        with open(os.path.join(out, "restore.json")) as f:
+            got = json.load(f)
+        part("restore")
+        check(got["traces"] == 0, f"the restore built {got['traces']} plans")
+        check(got["nvcc_runs"] == 0,
+              f"the restore ran nvcc {got['nvcc_runs']} times")
+        check(got["bind_builds"] == 0
+              and got["compiles"] == got["graph_captures"] > 0,
+              f"deviceStats: {got['bind_builds']} bind plans built, "
+              f"{got['compiles']} compiles, {got['graph_captures']} graph "
+              f"captures")
+        check(got["served_disk_hits"] >= got["served_binds"] > 0,
+              f"disk hits {got['served_disk_hits']} for "
+              f"{got['served_binds']} binds")
+        check(got["disk_loads"] > 0 and got["disk_stale"] == 0
+              and got["disk_quarantined"] == 0,
+              f"disk loads {got['disk_loads']}, stale {got['disk_stale']}, "
+              f"quarantined {got['disk_quarantined']}")
+        roots = [os.path.join(p, sb.EXEC_CACHE) + os.sep
+                 for p in (served_dir, decoded_dir)]
+        outside = {k: v for k, v in got["loaded"].items()
+                   if not any(v.startswith(r) for r in roots)}
+        check(got["loaded"] and not outside,
+              f"libraries loaded from outside the bundles: {outside}")
+        restored = np.load(os.path.join(out, "restore.npz"))
+        for b in BUNDLE_SERVE_BATCHES:
+            check(np.array_equal(restored[f"served{b}"], want[b]),
+                  f"the restored model's batch-{b} outputs differ from the "
+                  f"parent's")
+        check(got["streams"] == q8,
+              "the restored int8 decoder's streams differ from the "
+              "parent's on the same dequantized weights")
+        check(got["kv_dtype"] == "int8", f"kv dtype {got['kv_dtype']}")
+        gen = got["codegen_launches"]
+        check(gen.get("elementwise", 0) > 0
+              and gen.get("scale_bias_act", 0) > 0
+              and got["paged_launches"]["paged_attention_int8"] > 0,
+              f"launches in the restore {gen} {got['paged_launches']}")
+        check(got["decoder_traces_after"] == got["decoder_traces"],
+              "the restored decoder traced after warmup")
+        res["restore"] = {k: got[k] for k in (
+            "start_s", "served_ready_s", "served_first_answer_s",
+            "decoder_ready_s", "decoder_first_stream_s",
+            "decoder_traces", "bind_builds", "bind_restore_s",
+            "graph_captures",
+            "compiles", "traces", "misses", "disk_hits",
+            "disk_loads", "exe_loads", "served_binds", "nvcc_runs",
+            "codegen_launches", "paged_launches", "process_s")}
+        res["restore"]["libraries_loaded"] = sorted(got["loaded"])
+        res["cold_start"] = {
+            "restore_served_first_answer_s": got["served_first_answer_s"],
+            "from_process_start_s": got["start_s"]
+            + got["served_first_answer_s"],
+            "phase16_load_and_warmup_s": one_shot_parts.get(
+                "load_and_warmup"),
+            "phase1_build_s": build_s}
+        shutil.rmtree(tmp, ignore_errors=True)
+
+        # (d) fault: killed by SIGKILL, resumed
+        res["fault"] = _bundle_fault(out, procs, _bundle_config()["fault"])
+        part("fault")
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved_cudnn
+    res["parts_s"] = timing["parts_s"]
+    res["card"] = card
+    log("phase 22 ok: bundles of the served Inception-ResNet-v2 and the "
+        "int8 decoder restored in a fresh process with no plan built and "
+        "no nvcc run, outputs bit for bit and streams token for token; "
+        "fit_auto_resume killed by SIGKILL and resumed")
+    return res
+
+
 def _kernel_line(rows, launches_float, launches_int8, spec_launches,
                  ring_launches):
     def pick(kv):
@@ -7843,6 +8512,14 @@ def main():
                     help="run as one of phase 19's two workers (started "
                     "by the script itself through tools/launch.py), "
                     "writing results into DIR")
+    ap.add_argument("--restore-worker", metavar="DIR",
+                    help="run as phase 22's restore worker (started by "
+                    "the script itself from a copy of the package with no "
+                    "_build/), reading and writing DIR")
+    ap.add_argument("--fault-worker", nargs=2, metavar=("DIR", "MODE"),
+                    help="run as one of phase 22's fit_auto_resume "
+                    "workers (MODE kill or resume), started by the script "
+                    "itself")
     ap.add_argument("--profile", action="store_true",
                     help="also run torch.profiler over a training step "
                     "(phases 6 and 9) and print where the device time "
@@ -7851,6 +8528,12 @@ def main():
     args = ap.parse_args()
     if args.dp_worker:
         _dp_worker(args.dp_worker)
+        return
+    if args.restore_worker:
+        _restore_worker(args.restore_worker)
+        return
+    if args.fault_worker:
+        _fault_worker(*args.fault_worker)
         return
     t_start = time.perf_counter()
     # fresh calibration and tuning files: a record left by an earlier run
@@ -7875,6 +8558,8 @@ def main():
     # phase 19's workers too, at the builds' priority: their imports and
     # batches (about 21 s that phase 19 waited for) run beside phase 1
     dp_workers = _start_dp_workers()
+    # and phase 22's: the restore worker and the two fault workers
+    bundle_workers = _start_bundle_workers()
     import torch
 
     if not torch.cuda.is_available():
@@ -7898,6 +8583,8 @@ def main():
     t = time.perf_counter()
     drawer.start()
     card, build_s, examples = phase_environment(torch, examples)
+    # phase 22's workers import now, beside phase 2's device-timed kernels
+    _go(bundle_workers[1], "go-import")
     try:
         os.nice(-PHASE1_NICE)
     except OSError:     # not permitted: the rest of the run has no rival
@@ -7966,8 +8653,16 @@ def main():
     rtc_res = run("rtc", phase_rtc, torch, mx)
     surface = run("surface", phase_surface, torch, mx, trained, card,
                   examples)
+    def bundles(model, images, parts):
+        return run("bundles", phase_bundles, torch, mx, model, decoder,
+                   cfg, card, bundle_workers, images, parts, build_s)
+
     one_shot = run("one_shot", phase_one_shot, torch, mx, trained, decoder,
-                   cfg, serving, card)
+                   cfg, serving, card, bundles=bundles)
+    # phase 22 ran inside phase 16's call
+    report["phase_s"]["one_shot"] -= report["phase_s"]["bundles"]
+    bundle_res = one_shot.pop("bundles")
+    report["bundles"] = bundle_res
     del trained, decoder
     torch.cuda.empty_cache()
     lm, lm_params = run("lm", phase_lm, torch, mx)
@@ -8003,6 +8698,16 @@ def main():
         if template in ("elementwise", "scale_bias_act"):
             k["launches_pipe_expert"] = int(het.get(template, 0)
                                             * PE_HET_STEPS)
+    # phase 22 (c): B1/B2 and B5 in the restored process
+    restored = bundle_res["restore"]
+    for k in line["kernels"]:
+        template = k["name"][len("fusion_"):]
+        if template in ("elementwise", "scale_bias_act"):
+            k["launches_bundle_restore"] = \
+                restored["codegen_launches"].get(template, 0)
+        elif k["name"] == "paged_attention_int8":
+            k["launches_bundle_restore"] = \
+                restored["paged_launches"]["paged_attention_int8"]
     report["kernels"] = line["kernels"]
     report["phase_s"]["total"] = time.perf_counter() - t_start
     # how each training phase's module trained (phases 6 and 17 must be
@@ -8036,6 +8741,13 @@ def main():
     log("surface: " + json.dumps(surface["summary"]))
     log("one_shot: " + json.dumps(one_shot["summary"]
                                   | {"phase_s": report["phase_s"]["one_shot"]}))
+    log("bundles: " + json.dumps(
+        {k: bundle_res[k] for k in (
+            "served", "decoded", "served_save_s", "decoded_save_s",
+            "decoder_warmup_s", "decoder_traces_parent",
+            "int8_weights_top1_agreement", "restore_wall_s", "restore",
+            "cold_start", "fault", "parts_s", "card")}
+        | {"phase_s": report["phase_s"]["bundles"]}))
     prof = serving["profile"]
     log("decode: " + json.dumps({
         "greedy": {"tokens_per_s": serving["e2e_tokens_per_s"],

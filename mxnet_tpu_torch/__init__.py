@@ -119,6 +119,7 @@ from .sharding import ShardingPlan
 from . import checkpoint_sharded  # noqa: F401
 from .checkpoint_sharded import load_sharded, save_sharded
 from . import analysis  # noqa: F401
+from . import fault  # noqa: F401
 from .base import MXNetError
 from .callback import Speedometer
 from .context import Context, cpu, current_context, default_context, gpu
@@ -139,7 +140,7 @@ __all__ = ["AttrScope", "Context", "Executor", "FeedForward", "Group",
            "current_context", "data", "decoding", "default_context",
            "exec_cache",
            "executor",
-           "executor_manager", "feed_forward", "gpu", "image",
+           "executor_manager", "fault", "feed_forward", "gpu", "image",
            "image_det", "init", "initializer", "io", "kv", "kvstore",
            "lr_scheduler", "metric", "mod", "model",
            "models", "module", "monitor", "name", "nd", "ndarray",

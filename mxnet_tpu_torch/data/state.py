@@ -14,8 +14,8 @@ consistent state, never a torn file — the same crash-safety discipline
 as recordio's index flush. The file format is the JAX package's
 (mxnet_tpu/data/state.py): a state file written by either package loads
 in the other. `checkpoint_sharded` writes them beside a sharded
-checkpoint; the JAX package's `fault.fit_auto_resume` writer is not
-ported yet (ROADMAP.md A.10).
+checkpoint, and `fault.fit_auto_resume` rewrites `<prefix>-data-state.json`
+after every batch.
 
 Limitations worth knowing (docs/data.md): parameter checkpoints are
 per-epoch while data state is per-step, so an auto-resumed run replays

@@ -190,6 +190,11 @@ class DecodeEngine:
              self.draft_cfg, self.spec_k if self.spec_enabled else 0,
              self.step_rows if self.merged_step_enabled else 0,
              self.kv_dtype)).encode()).hexdigest()[:12]
+        # the paged attention a decode step launches (what a bundle's
+        # manifest records as its kernel): B4/B5 on the card, the plain
+        # version on the host
+        self.kernel_name = "paged_attention" \
+            if self.device.type == "cuda" else "plain"
         self._trace_counts = {}
         self._warm = False
         self._use_graphs = self.device.type == "cuda"
@@ -219,6 +224,19 @@ class DecodeEngine:
     def prefill_buckets(self):
         """Prompt length buckets: one per page bucket."""
         return tuple(b * self.page_size for b in self.page_buckets)
+
+    def library_blobs(self):
+        """[(library, sighash, file)] of the kernel libraries the
+        engine's steps launch (the paged attention's on the card, none
+        on the host): what a bundle carries as the engine record's
+        blobs."""
+        if self.device.type != "cuda":
+            return []
+        from .. import kernels
+
+        lib = kernels.library_path("paged_attention")
+        return [("paged_attention", kernels.sighash_of(lib),
+                 kernels.library_file(lib))]
 
     def traces(self):
         """Total captures (CUDA) or first calls at a grid cell (CPU) so

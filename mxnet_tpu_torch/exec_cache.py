@@ -30,14 +30,23 @@ reference's keys.
 Knobs:
   MXNET_EXEC_CACHE=0        disable (every bind builds a private plan)
   MXNET_EXEC_CACHE_SIZE=N   LRU bound on retained entries (default 64)
+  MXNET_EXEC_CACHE_DIR=path disk tier (exec_cache_disk): persist a
+                            record per entry (the optimized graph, the
+                            walk order, the fusion decisions, the layout)
+                            and the kernel libraries its plan launches,
+                            across processes. A fresh process rebinding a
+                            seen graph restores the plan with no plan
+                            built and no nvcc run; a stale or corrupt
+                            entry falls back to a plain bind.
 
-The disk tier (MXNET_EXEC_CACHE_DIR, exec_cache_disk.py) waits for
-ROADMAP A.10.
+`cache_stats()` merges the disk tier's counters (disk_hits, disk_misses,
+disk_stale, ...) once exec_cache_disk has been imported.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import sys
 import threading
 from collections import OrderedDict
 
@@ -79,12 +88,18 @@ def capacity():
 
 
 def cache_stats():
-    """Snapshot of the cache counters plus current size/capacity."""
+    """Snapshot of the cache counters plus current size/capacity, with
+    the disk tier's counters merged in when exec_cache_disk has been
+    touched."""
     with _lock:
         out = dict(_stats)
         out["size"] = len(_table)
         out["capacity"] = capacity()
         out["enabled"] = _enabled()
+    disk = sys.modules.get(__package__ + ".exec_cache_disk")
+    if disk is not None:
+        out.update(disk.counters())
+        out["disk_enabled"] = disk.tier_active()
     return out
 
 
@@ -92,6 +107,9 @@ def reset_stats():
     with _lock:
         for k in _stats:
             _stats[k] = 0
+    disk = sys.modules.get(__package__ + ".exec_cache_disk")
+    if disk is not None:
+        disk.reset_counters()
 
 
 # live view in the telemetry registry: /statusz and /metrics read the
@@ -130,23 +148,60 @@ def _mark_hit(key, raw_sig):
                 _stats["canonical_collisions"] += 1
 
 
-def lookup_or_build(key, builder, raw_sig=None, canonical_fn=None):
+def lookup_or_build(key, builder, raw_sig=None, canonical_fn=None,
+                    disk_meta_fn=None, restore_fn=None, prepare_fn=None):
     """The cached BindPlan for `key`, built with `builder()` and
     LRU-inserted on a miss. `raw_sig` hashes the caller's
     pre-canonicalization graph signature: a hit whose raw_sig that entry
     never saw means two build orders converged on one plan through the
     pass pipeline (`canonical_collisions`). `canonical_fn` (miss only)
-    gives the graph's canonical digest, stamped on the entry."""
+    gives the graph's canonical digest, stamped on the entry.
+
+    Disk tier (exec_cache_disk, active when MXNET_EXEC_CACHE_DIR or a
+    bundle overlay is mounted): an in-memory miss probes the disk for a
+    record under the entry's digest. `restore_fn(record)` rebuilds the
+    plan from a compatible record (None when it cannot: another layout,
+    a library blob that fails its check, counted `disk_stale`); a
+    restored plan is a miss but not a trace. Otherwise `prepare_fn()`
+    (the bind's kernel builds) runs, then `builder()` under the lock,
+    and the entry's record, `disk_meta_fn(entry)`'s metadata and
+    library blobs, is written for the next process. All disk I/O and kernel
+    builds happen outside _lock."""
     with _lock:
         if _enabled():
             entry = _table.get(key)
             if entry is not None:
                 _mark_hit(key, raw_sig)
                 return entry
+    digest = hashlib.sha1(repr(key).encode()).hexdigest()[:12]
+    disk = disk_rec = restored = None
+    try:
+        from . import exec_cache_disk as _disk
+
+        if _disk.tier_active():
+            disk = _disk
+            disk_rec = disk.lookup_record(digest)
+    except Exception:
+        disk = None
+    if disk_rec is not None and restore_fn is not None:
+        restored = restore_fn(disk_rec)
+        if restored is None:
+            disk.note_stale()
+    if restored is None and prepare_fn is not None:
+        prepare_fn()
+    with _lock:
+        if _enabled():
+            entry = _table.get(key)
+            if entry is not None:  # raced a concurrent builder
+                _mark_hit(key, raw_sig)
+                return entry
         _stats["misses"] += 1
-        _stats["traces"] += 1
-        entry = builder()
-        entry.digest = hashlib.sha1(repr(key).encode()).hexdigest()[:12]
+        if restored is None:
+            _stats["traces"] += 1
+            entry = builder()
+        else:
+            entry = restored
+        entry.digest = digest
         if canonical_fn is not None:
             try:
                 entry.canonical = canonical_fn()
@@ -161,6 +216,15 @@ def lookup_or_build(key, builder, raw_sig=None, canonical_fn=None):
                 old_key, _ = _table.popitem(last=False)
                 _raw_sigs.pop(old_key, None)
                 _stats["evictions"] += 1
+    if disk is not None and restored is None:
+        try:
+            blobs = entry.codegen_plan.libraries()
+        except Exception:
+            blobs = ()
+        disk.write_record(
+            digest, canonical=entry.canonical, blobs=blobs,
+            meta_fn=(lambda: disk_meta_fn(entry)) if disk_meta_fn else None)
+    entry.from_disk = restored is not None
     return entry
 
 
@@ -171,7 +235,7 @@ class BindPlan:
     kernel handle), the variable names by node id, and the head keys."""
 
     __slots__ = ("opt_symbol", "codegen_plan", "plan", "var_names",
-                 "heads", "digest", "canonical")
+                 "heads", "digest", "canonical", "from_disk", "walk")
 
     def __init__(self, opt_symbol, codegen_plan, plan, var_names, heads):
         self.opt_symbol = opt_symbol
@@ -181,3 +245,5 @@ class BindPlan:
         self.heads = heads
         self.digest = None     # entry id (lookup_or_build stamps it)
         self.canonical = None  # canonical graph digest
+        self.from_disk = False  # restored from the disk tier
+        self.walk = None        # [[node index, name]] of the plan's nodes

@@ -43,10 +43,20 @@ that follows (the generator's and the key chain's state are restored).
 The fused train step (`parallel/dp_step.py`) runs the same walk through
 `_run_graph` with its own parameter, aux and key values.
 
-Not ported: the exec cache's disk tier (ROADMAP A.10).
+Where the exec cache's disk tier is mounted (MXNET_EXEC_CACHE_DIR, or a
+serving bundle's overlay), a bind whose plan is not in memory looks for
+its record: a compatible one of the same layout (device, sharding
+digest, compute dtype) and fusion decisions restores the plan from the
+record's walk order, with the group kernels' libraries loaded from the
+record's blobs (no nvcc, no parity check, no timing: they were checked
+when they were built). It counts `disk_hits`, not `traces`, and lands in
+`deviceStats` as a disk load, not a compile. A plan built on a miss
+writes its record (`_disk_record_meta`) and libraries for the next
+process.
 """
 from __future__ import annotations
 
+import json
 import os
 import time
 
@@ -158,13 +168,15 @@ class Executor:
         raw_key = self._symbol.structure_key()
         graph_key = (raw_key if self._opt_symbol is self._symbol
                      else self._opt_symbol.structure_key())
-        self._codegen_plan = _passes.plan_for(
+        # the kernels this bind needs are built in the exec cache's
+        # miss path (or loaded from a disk record's blobs)
+        pending = _passes.plan_for(
             self._opt_symbol,
             input_shapes={n: tuple(a.shape)
                           for n, a in {**self.arg_dict,
                                        **self.aux_dict}.items()},
             device=self._device, compute_dtype=self._compute_dtype,
-            keep_dtype=self._keep_dtype)
+            keep_dtype=self._keep_dtype, defer=True)
         mirror = os.environ.get(
             "MXNET_BACKWARD_DO_MIRROR", "0") not in ("0", "", "false")
         # the JAX package's key (with the sharding plan's digest), then
@@ -185,7 +197,7 @@ class Executor:
             tuple(self._grad_names),
             (self._sharding_plan.digest()
              if self._sharding_plan is not None else None),
-            self._codegen_plan.cache_component,
+            pending.cache_component,
             mirror,
             str(self._device),
             (str(self._compute_dtype), tuple(sorted(self._keep_dtype))),
@@ -197,17 +209,25 @@ class Executor:
             self._compiled = shared_exec._compiled
             _exec_cache.count_shared_hit()
         else:
-            built = []
+            built, restored = [], []
 
             def make_plan():
                 built.append(True)
-                return self._make_plan()
+                return self._make_plan(pending.finish())
+
+            def restore(rec):
+                plan = self._restore_plan(pending, rec)
+                if plan is not None:
+                    restored.append(True)
+                return plan
 
             self._compiled = _exec_cache.lookup_or_build(
                 self._cache_key, make_plan, raw_sig=hash(raw_key),
                 canonical_fn=lambda: _passes.canonical_digest(
-                    self._opt_symbol))
-            if built:
+                    self._opt_symbol),
+                disk_meta_fn=self._disk_record_meta,
+                restore_fn=restore, prepare_fn=pending.finish)
+            if built or restored:
                 from .profiling import _accounting as _ds
 
                 _ds.record_program(
@@ -217,33 +237,104 @@ class Executor:
                         [a._data for a in self.arg_dict.values()]
                         + [a._data for a in self.aux_dict.values()]),
                     canonical=self._compiled.canonical,
-                    device=self._device)
+                    device=self._device, from_disk=not built)
+        # on a hit the bind's kernels are in the codegen's table already
+        self._codegen_plan = pending.finish()
         self._opt_symbol = self._compiled.opt_symbol
 
-    def _make_plan(self):
+    def _layout(self):
+        """What a plan was built for beyond its graph and signature, as
+        the disk record keeps it: the device, the sharding plan's digest
+        and the compute dtype."""
+        return {"device": str(self._device),
+                "sharding": (self._sharding_plan.digest()
+                             if self._sharding_plan is not None else None),
+                "compute": [str(self._compute_dtype),
+                            sorted(self._keep_dtype)]}
+
+    def _disk_record_meta(self, entry):
+        """What the disk tier keeps of a plan built here: the optimized
+        graph's JSON and the bind signature (the JAX package's fields),
+        and the port's own: the layout, the fusion decisions, the walk
+        order (node index and name in `_topo` order) and the libraries
+        the plan launches."""
+        return {
+            "graph_json": self._opt_symbol.tojson(),
+            "inputs": [[n, list(self.arg_dict[n].shape),
+                        str(self.arg_dict[n].dtype)]
+                       for n in self._arg_names],
+            "auxs": [[n, list(self.aux_dict[n].shape),
+                      str(self.aux_dict[n].dtype)]
+                     for n in self._aux_names],
+            "grad_req": {n: self._grad_req.get(n, "null")
+                         for n in self._arg_names},
+            "sharding": (self._sharding_plan.digest()
+                         if self._sharding_plan is not None else None),
+            "layout": self._layout(),
+            "fusion": [list(c) for c in entry.codegen_plan.cache_component],
+            "walk": entry.walk,
+            "libraries": [{"kind": tag, "sighash": sig}
+                          for tag, sig, _ in
+                          entry.codegen_plan.libraries()],
+        }
+
+    def _restore_plan(self, pending, rec):
+        """The BindPlan of a disk record, or None when the record does not
+        fit this bind (another layout or fusion decisions, a walk that
+        does not match the graph) or a library blob is missing or fails
+        its check: the bind then builds as on a miss."""
+        from . import exec_cache_disk as _disk
+        from . import kernels as _kernels
+
+        if (rec.get("layout") != json.loads(json.dumps(self._layout()))
+                or rec.get("fusion") != [list(c) for c in
+                                         pending.cache_component]):
+            return None
+        for lib in pending.libraries_to_build():
+            blob = _disk.load_executable(rec.get("digest"),
+                                         *lib[:2])
+            if blob is None:
+                return None
+            _kernels.locate(lib[2], blob)
+        walk = rec.get("walk")
+        if not isinstance(walk, list):
+            return None
+        return self._make_plan(pending.finish(restore=True), walk)
+
+    def _make_plan(self, cg, walk=None):
         """The node plan of the walk over the optimized symbol: one
         entry per computed node, a fused group's interior skipped and
-        its output routed to the group's kernel handle."""
+        its output routed to the group's kernel handle. `walk` (a disk
+        record's [[node index, name], ...]) gives the nodes and their
+        order; None when it does not match the graph."""
         nodes = _topo(self._opt_symbol._outputs)
-        cg = self._codegen_plan
         skip = frozenset(id(nodes[i]) for i in cg.skip)
         fused = {id(nodes[i]): (fn, tuple((id(nodes[s]), oi)
                                           for s, oi in ext))
                  for i, (fn, ext) in cg.fused.items()}
+        order = [i for i, n in enumerate(nodes)
+                 if not n.is_variable and id(n) not in skip]
+        if walk is not None:
+            try:
+                if [int(i) for i, _ in walk] != order or any(
+                        nodes[int(i)].name != name for i, name in walk):
+                    return None
+            except (TypeError, ValueError):
+                return None
         plan = []
-        for n in nodes:
-            if n.is_variable or id(n) in skip:
-                continue
+        for n in (nodes[i] for i in order):
             params = n.op.normalize_params(n.attrs)
             dev = self._group_dev.get(n._extra_attrs.get("__ctx_group__"))
             plan.append((n.op, params, n.op.resolved_num_outputs(params),
                          [(id(src), i) for src, i in n.inputs], id(n),
                          fused.get(id(n)), _no_grad_positions(n.op, params),
                          dev))
-        return _exec_cache.BindPlan(
+        entry = _exec_cache.BindPlan(
             self._opt_symbol, cg, plan,
             {id(n): n.name for n in nodes if n.is_variable},
             [(id(n), i) for n, i in self._opt_symbol._outputs])
+        entry.walk = [[i, nodes[i].name] for i in order]
+        return entry
 
     # ---------------------------------------------------- mixed precision
     def cast_compute(self, dtype, keep=()):

@@ -21,6 +21,13 @@ output, and a library that fails to load leaves the loader's error, in
 `_build/<library>.fail.txt` (`_build/gen/<tag>.fail.txt` for a
 generated source), and the raised MXNetError names that file.
 
+Where the exec cache's disk tier is mounted (MXNET_EXEC_CACHE_DIR, or a
+serving bundle's `exec_cache/`), a library missing from `_build/` is
+first looked for there (`exec_cache_disk.find_executable`): a blob that
+passes its check is loaded in place with ctypes and no nvcc starts.
+`loaded()` names the file each library was loaded from, and
+`nvcc_runs()` counts the compilers this process started.
+
 Generated sources (the fusion-group kernels of passes/codegen.py) go
 through the same compiler: `build_generated([(tag, text), ...])` writes
 each text to `_build/gen/`, starts one nvcc per source not built yet,
@@ -33,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -67,6 +75,11 @@ GEN_NVCC_FLAGS = _BASE_FLAGS + ("-fmad=false",)
 
 _lock = threading.Lock()
 _libs = {}
+# library path under _build/ -> the disk-tier blob loaded in its place
+_LOCATED = {}
+# library name or generated tag -> the file it was loaded from
+_LOADED = {}
+_NVCC_RELEASE = []
 
 
 def nvcc_path():
@@ -86,6 +99,58 @@ def nvcc_path():
     raise MXNetError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
         "kernels of mxnet_tpu_torch are built from source at first use")
+
+
+def nvcc_release():
+    """The release of the nvcc this process builds with (`nvcc
+    --version`, e.g. "12.4"), or None where there is none."""
+    if not _NVCC_RELEASE:
+        try:
+            out = subprocess.run([nvcc_path(), "--version"],
+                                 capture_output=True, text=True,
+                                 timeout=60).stdout
+            m = re.search(r"release ([0-9.]+)", out)
+            _NVCC_RELEASE.append(m.group(1) if m else None)
+        except (MXNetError, OSError, subprocess.SubprocessError):
+            _NVCC_RELEASE.append(None)
+    return _NVCC_RELEASE[0]
+
+
+def sighash_of(lib):
+    """The digest in a built library's file name (`lib<name>-<digest>.so`):
+    the disk tier's key of its blob."""
+    return os.path.splitext(os.path.basename(lib))[0].rsplit("-", 1)[-1]
+
+
+def locate(lib, blob):
+    """Load library `lib` (its path under `_build/`) from the verified
+    disk-tier blob `blob` instead of building it."""
+    with _lock:
+        _LOCATED[lib] = blob
+
+
+def library_file(lib):
+    """The file library `lib` is (or would be) loaded from: its blob
+    where one was located, else its path under `_build/`."""
+    with _lock:
+        return _LOCATED.get(lib, lib)
+
+
+def loaded():
+    """{library name or generated tag: the file it was loaded from} of
+    every library this process loaded."""
+    with _lock:
+        return dict(_LOADED)
+
+
+def _disk_blob(name, out):
+    """A verified disk-tier blob of library `out`, or None (tier not
+    mounted, no blob, or none that passes its check)."""
+    from . import exec_cache_disk as _disk
+
+    if not _disk.tier_active():
+        return None
+    return _disk.find_executable(name, sighash_of(out))
 
 
 def _source(name):
@@ -142,6 +207,11 @@ def compiled():
     return list(_STARTED)
 
 
+def nvcc_runs():
+    """How many nvcc processes this process started."""
+    return len(_STARTED)
+
+
 def _compile(jobs):
     """Start one nvcc per (name, source, library, flags) whose library is
     not built yet, all together, and wait for every one. Raises
@@ -151,13 +221,18 @@ def _compile(jobs):
 
 
 def _start(jobs):
-    """Start the nvcc of each job whose library is missing; returns what
-    `_wait` takes."""
+    """Start the nvcc of each job whose library is missing from `_build/`
+    and from the disk tier; returns what `_wait` takes."""
     pending, seen = [], set()
     for name, src, out, flags in jobs:
-        if out not in seen and not os.path.exists(out):
-            seen.add(out)
-            pending.append((name, src, out, flags))
+        if out in seen or out in _LOCATED or os.path.exists(out):
+            continue
+        seen.add(out)
+        blob = _disk_blob(name, out)
+        if blob is not None:
+            _LOCATED[out] = blob
+            continue
+        pending.append((name, src, out, flags))
     if not pending:
         return []
     nvcc = nvcc_path()
@@ -195,14 +270,18 @@ def _wait(started):
 
 
 def _load_library(name, out):
-    """ctypes.CDLL of a built library; a failure leaves the loader's
-    error in the library's fail file and raises MXNetError naming it."""
+    """ctypes.CDLL of a built library (or of the disk-tier blob located
+    for it); a failure leaves the loader's error in the library's fail
+    file and raises MXNetError naming it. Called with _lock held."""
+    path = _LOCATED.get(out, out)
     try:
-        return ctypes.CDLL(out)
+        lib = ctypes.CDLL(path)
+        _LOADED[name] = path
+        return lib
     except OSError as e:
-        path = _write_fail(name, out, f"ctypes.CDLL({out!r}) failed:\n{e}\n")
+        log = _write_fail(name, out, f"ctypes.CDLL({path!r}) failed:\n{e}\n")
         raise MXNetError(
-            f"kernel library {name} failed to load (log: {path}): {e}"
+            f"kernel library {name} failed to load (log: {log}): {e}"
         ) from e
 
 

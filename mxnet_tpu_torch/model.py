@@ -147,5 +147,5 @@ def fit_elastic(connect, entry, config=None, num_retries=None,
                 **worker_kwargs):
     """Elastic training (docs/elastic.md) is not ported."""
     raise MXNetError("fit_elastic waits for the control-plane slice "
-                     "(ROADMAP.md A.10): the port has no elastic "
+                     "(ROADMAP.md A.10, part 3): the port has no elastic "
                      "coordinator")

@@ -143,22 +143,11 @@ from . import collective
 
 
 def parse_nan_inject(spec=None):
-    """Parse the numerics fault spec 'nan:step:N[:param]' from `spec`
-    or MXNET_TPU_FAULT_INJECT (mxnet_tpu/fault.py parse_nan_inject).
-    Returns (step, param_or_None), or None when the spec is absent or
-    not a nan fault."""
-    if spec is None:
-        spec = os.environ.get("MXNET_TPU_FAULT_INJECT", "")
-    parts = spec.split(":")
-    if len(parts) < 3 or parts[0] != "nan" or parts[1] != "step":
-        return None
-    try:
-        step = int(parts[2])
-    except ValueError:
-        raise MXNetError(f"bad nan fault spec {spec!r}: step must be "
-                         "an integer ('nan:step:N[:param]')")
-    param = parts[3] if len(parts) > 3 and parts[3] else None
-    return (step, param)
+    """`fault.parse_nan_inject` ('nan:step:N[:param]'), under the name
+    this module gave it before fault.py was ported."""
+    from ..fault import parse_nan_inject as parse
+
+    return parse(spec)
 
 
 def _map_tree(fn, tree):
@@ -572,7 +561,10 @@ class FusedTrainStep:
 
     def _nan_inject_plan(self):
         """(param_name, step) for the 'nan:step:N' fault spec, or None;
-        read when the step is built."""
+        read when the step is built. Lazy import: fault.py imports the
+        model layer."""
+        from ..fault import parse_nan_inject
+
         spec = parse_nan_inject()
         if spec is None:
             return None

@@ -917,8 +917,71 @@ class CodegenPlan:
     fused: dict
     cache_component: tuple
 
+    def libraries(self):
+        """[(tag, sighash, file)] of the generated libraries the plan's
+        kernels launch (none on the CPU): what the exec cache's disk
+        tier keeps as the record's blobs."""
+        from .. import kernels
+
+        out, seen = [], set()
+        for group, _ in self.fused.values():
+            k = group.kernel
+            if k is None:
+                continue
+            lib = kernels.generated_paths(k.tag, k.source)[1]
+            if lib not in seen:
+                seen.add(lib)
+                out.append((k.tag, kernels.sighash_of(lib),
+                            kernels.library_file(lib)))
+        return out
+
 
 _EMPTY_PLAN = CodegenPlan(frozenset(), {}, ())
+
+
+class PendingPlan:
+    """A bind's codegen plan before the kernels it needs are built
+    (`plan_for(..., defer=True)`). Its `cache_component` is already the
+    finished plan's: a group whose kernel the bind builds lowers, or the
+    build raises. `finish()` builds them (one nvcc each, parity checks,
+    calibration) and returns the CodegenPlan; `finish(restore=True)`
+    takes a plan restored from the exec cache's disk tier, whose
+    libraries `kernels` loads from the record's blobs and which were
+    checked when they were built: no parity check and no timing."""
+
+    def __init__(self, decided, to_build, dev):
+        self._decided = decided
+        self._to_build = to_build
+        self._dev = dev
+        self._plan = None
+        self.cache_component = tuple(
+            (tag, f"fallback:{d[1]}" if d[0] == "fallback"
+             else f"kernel:{digest}")
+            for tag, _, _, digest, _, _, d in decided)
+
+    def libraries_to_build(self):
+        """[(tag, sighash, library path under _build/)] of the generated
+        libraries `finish()` would build on the card (none on the
+        CPU)."""
+        if self._dev is None or self._dev.type != "cuda":
+            return []
+        from .. import kernels
+
+        out = []
+        for digest, _, template, _, emitted in self._to_build.values():
+            tag = f"fusion_{template}_{digest}"
+            lib = kernels.generated_paths(tag, emitted[0])[1]
+            if all(lib != x[2] for x in out):
+                out.append((tag, kernels.sighash_of(lib), lib))
+        return out
+
+    def finish(self, restore=False):
+        if self._plan is None:
+            if self._to_build:
+                _build(self._to_build, self._dev, restore=restore)
+            self._plan = _finish(self._decided, self._dev) \
+                if self._decided else _EMPTY_PLAN
+        return self._plan
 
 
 def _prepare(spec, ext_avals, digest, template):
@@ -951,7 +1014,7 @@ def _prepare(spec, ext_avals, digest, template):
 
 
 def plan_for(symbol, input_shapes=None, device=None, compute_dtype=None,
-             keep_dtype=()):
+             keep_dtype=(), defer=False):
     """Codegen plan for an optimized (pipeline-stamped) symbol.
 
     `input_shapes` maps variable names to shapes (args + auxs); without
@@ -962,7 +1025,8 @@ def plan_for(symbol, input_shapes=None, device=None, compute_dtype=None,
     `compute_dtype` (an executor under cast_compute) every floating
     input of a group takes that dtype, but those read straight from the
     variables named in `keep_dtype` (labels). Node indices refer to
-    `symbol._topo` order."""
+    `symbol._topo` order. With `defer`, nothing is built yet: the result
+    is a PendingPlan, whose `finish()` gives the plan."""
     from ..context import resolve_device
     from ..symbol import _graph_infer, _topo
     from .ir import Graph
@@ -970,7 +1034,7 @@ def plan_for(symbol, input_shapes=None, device=None, compute_dtype=None,
     graph = Graph.from_symbol(symbol)
     groups = _groups_in(graph.nodes)
     if not groups:
-        return _EMPTY_PLAN
+        return PendingPlan((), {}, None) if defer else _EMPTY_PLAN
     dev = resolve_device(device)
     cfg = codegen_config()
     order = _topo(symbol._outputs)
@@ -1004,10 +1068,12 @@ def plan_for(symbol, input_shapes=None, device=None, compute_dtype=None,
             decision = ("fallback", stamp[len("fallback:"):]
                         if stamp.startswith("fallback:") else "unplanned")
         decided.append((tag, members, out, digest, spec, ext, decision))
+    pending = PendingPlan(decided, to_build, dev)
+    return pending if defer else pending.finish()
 
-    if to_build:
-        _build(to_build, dev)
 
+def _finish(decided, dev):
+    """The CodegenPlan of a bind's decisions, its kernels built."""
     skip, fused, component = set(), {}, []
     for tag, members, out, digest, spec, ext, decision in decided:
         decision = _resolved(decision)
@@ -1146,10 +1212,12 @@ def build_groups(requests, device=None):
     return out
 
 
-def _build(to_build, dev):
+def _build(to_build, dev, restore=False):
     """Compile every new kernel of a bind together (CUDA), then
     parity-check each group and record its callable. Raises MXNetError
-    on a compiler, launch or parity failure."""
+    on a compiler, launch or parity failure. With `restore` (a plan from
+    the disk tier, its libraries located by `kernels`), only the
+    callables are made."""
     kernels = {}
     if dev.type == "cuda":
         from .. import kernels as _kernels
@@ -1168,6 +1236,10 @@ def _build(to_build, dev):
         _, out_shape, out_dtype = emitted
         group = FusedGroup(digest, template, spec, avals, out_shape,
                            out_dtype, kernels.get(key))
+        if restore:
+            with _LOCK:
+                _KERNELS[key] = ("ok", group)
+            continue
         ok, ins = _parity_ok(group, avals, dev)
         with _LOCK:
             _COUNTS["parity_checks"] += 1

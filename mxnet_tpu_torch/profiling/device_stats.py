@@ -22,6 +22,11 @@ graphs (`decoding/engine.py`) and the exec cache's bind plans
                naming the op, for a fused step that runs uncaptured
                because an op of its graph must synchronise with the host
 
+A bind plan restored from the exec cache's disk tier
+(`record_program(..., from_disk=True)`) is not a compile: it bills
+`totals.disk_loads` and the record's `disk_loads` instead of
+`totals.compiles`, as the JAX package's executables restored AOT do.
+
 Several signatures of one family merge: seconds add up, byte and flop
 fields keep the largest. `instrument(fn, digest, kind)` wraps a plain
 callable the same way: its first call of each argument signature is
@@ -89,9 +94,10 @@ def _new_record(digest, kind, canonical, label):
 def record_program(digest, kind, compile_s=0.0, trace_s=0.0,
                    arg_bytes=0, out_bytes=0, temp_bytes=0, flops=0.0,
                    canonical=None, label=None, device=None, graphed=None,
-                   uncaptured_op=None):
+                   uncaptured_op=None, from_disk=False):
     """Merge one captured (or planned) program into the record table
-    (module docstring). Returns its hbm bytes."""
+    (module docstring); `from_disk=True` marks a plan restored from the
+    disk tier. Returns its hbm bytes."""
     if not digest or not profiling_enabled():
         return 0
     arg_b, out_b, tmp_b = int(arg_bytes), int(out_bytes), int(temp_bytes)
@@ -116,7 +122,11 @@ def record_program(digest, kind, compile_s=0.0, trace_s=0.0,
         if graphed is not None:
             rec["graphed"] = bool(graphed)
             rec["uncaptured_op"] = uncaptured_op
-        _totals["compiles"] += 1
+        if from_disk:
+            _totals["disk_loads"] += 1
+            rec["disk_loads"] = rec.get("disk_loads", 0) + 1
+        else:
+            _totals["compiles"] += 1
         n_records = len(_records)
         peak = max(r["hbm_bytes"] for r in _records.values())
     _COMPILE_SECONDS.inc(float(compile_s), kind=str(kind))

@@ -19,22 +19,26 @@ Decoders (`decoding.DecodedModel`) load into the same server.
 
 Modules: batcher (queue, bucketing, flush policy), server (ModelServer),
 registry (multi-model, warmup), stats (qps/latency/fill/padding
-counters, the `servingStats` view), config (MXNET_SERVING_* knobs).
-AOT serving bundles (`bundle`, `load_bundle`) wait for ROADMAP A.10.
+counters, the `servingStats` view), config (MXNET_SERVING_* knobs),
+bundle (`save_bundle` / `load_bundle`: one directory holding a warm
+model's weights, optionally int8 (quant), and its plans and kernel
+libraries).
 """
-from . import batcher, config, registry, server, stats
+from . import batcher, bundle, config, registry, server, stats
 from .batcher import (BucketSpec, DeadlineExceededError, DynamicBatcher,
                       ServerBusyError, ServerClosedError, ServingError,
                       default_batch_buckets, pick_bucket)
+from .bundle import BundleError, load_bundle, read_manifest, save_bundle
 from .registry import ModelRegistry, ServedModel
 from .server import ModelServer
 from .stats import ServingStats, reset_serving_stats, serving_stats
 
 __all__ = [
-    "BucketSpec", "DynamicBatcher", "DeadlineExceededError",
-    "ModelRegistry", "ModelServer", "ServedModel", "ServerBusyError",
-    "ServerClosedError", "ServingError", "ServingStats",
-    "batcher", "config", "default_batch_buckets", "pick_bucket",
-    "registry", "reset_serving_stats", "server", "serving_stats",
-    "stats",
+    "BucketSpec", "BundleError", "DynamicBatcher",
+    "DeadlineExceededError", "ModelRegistry", "ModelServer",
+    "ServedModel", "ServerBusyError", "ServerClosedError",
+    "ServingError", "ServingStats", "batcher", "bundle", "config",
+    "default_batch_buckets", "load_bundle", "pick_bucket",
+    "read_manifest", "registry", "reset_serving_stats", "save_bundle",
+    "server", "serving_stats", "stats",
 ]

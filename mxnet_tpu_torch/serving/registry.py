@@ -18,7 +18,10 @@ profiling CalibrationStore (`forward[<batch>x<length>]`, and `forward`
 for the largest cell) under the graph's canonical digest; a harvest
 that fails is counted in `calibration_skipped` and warned about once.
 
-Not ported: `load_bundle` (AOT serving bundles, ROADMAP A.10).
+`load_bundle` restores a serving bundle (serving/bundle.py): its binds
+restore their plans from the bundle's records and load their kernel
+libraries from its blobs, so a fresh process builds no plan and runs no
+nvcc.
 """
 from __future__ import annotations
 
@@ -28,7 +31,6 @@ import time
 
 import numpy as np
 
-from ..base import MXNetError
 from ..predictor import Predictor
 from .batcher import BucketSpec, ServingError, default_batch_buckets
 from .stats import ServingStats, _register, _unregister
@@ -230,10 +232,14 @@ class ModelRegistry:
         return model
 
     def load_bundle(self, path, name=None, version=None, warmup=True):
-        """AOT serving bundles (serving/bundle.py) wait for ROADMAP A.10."""
-        raise MXNetError(
-            "serving bundles (load_bundle) are not ported yet: ROADMAP "
-            "A.10 (exec_cache_disk, serving/bundle.py)")
+        """Restore a serving bundle (serving.save_bundle) into this
+        registry on the current context: a ServedModel or a
+        DecodedModel, warm by default, built from the bundle's records
+        and kernel libraries (serving/bundle.py)."""
+        from .bundle import load_bundle
+
+        return load_bundle(path, self, name=name, version=version,
+                           warmup=warmup)
 
     def get(self, name, version=None):
         with self._lock:

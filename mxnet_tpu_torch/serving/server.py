@@ -121,8 +121,9 @@ class ModelServer:
         return model
 
     def load_bundle(self, path, name=None, version=None, warmup=True):
-        """Restore an AOT serving bundle into this server. Bundles
-        wait for ROADMAP A.10: the registry raises MXNetError."""
+        """Restore a serving bundle (serving.save_bundle) into this
+        server and attach its lane (a decoder's lane is its own
+        scheduler thread)."""
         with self._lock:
             if self._closed:
                 raise ServerClosedError("server is stopped")

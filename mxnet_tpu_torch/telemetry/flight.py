@@ -11,8 +11,9 @@ Enablement: MXNET_TELEMETRY_FLIGHT_DIR=<dir>. When it is set,
 `install()` (done at `mxnet_tpu_torch.telemetry` import) chains
 sys.excepthook and threading.excepthook, so any unhandled exception
 dumps before the interpreter unwinds. When it is unset every entry point
-is a cheap no-op. The fault injector's dump on a simulated failure waits
-for `fault.py` (ROADMAP A.10).
+is a cheap no-op. `fault.FaultInjector` dumps before each failure it
+injects (reason `fault_injector:<spec>`), the SIGKILL form included:
+that record is the only artifact a killed process leaves by choice.
 """
 from __future__ import annotations
 

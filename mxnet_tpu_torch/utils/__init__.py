@@ -182,10 +182,13 @@ register_env(
 )
 register_env(
     "MXNET_TPU_FAULT_INJECT", str, "",
-    "fault injection; the port reads only the numerics form "
-    "'nan:step:N[:param]' (one gradient poisoned on the card at fused "
-    "step N). The kill forms ('epoch:N', 'step:N') wait for fault.py "
-    "(ROADMAP.md A.10).",
+    "fault injection (mxnet_tpu_torch.fault): 'epoch:N' raises after "
+    "epoch N's checkpoint is durable; 'step:N' raises at global batch "
+    "N, the mid-epoch hard resume case; 'kill:step:N' sends SIGKILL to "
+    "the process at global batch N, with no unwind, finally or atexit; "
+    "'nan:step:N[:param]' poisons one gradient with NaN on the card at "
+    "fused step N and training goes on (FaultInjector, "
+    "parse_nan_inject). Fires once.",
 )
 register_env(
     "MXNET_PROFILING", bool, True,
@@ -291,6 +294,51 @@ register_env(
 register_env(
     "MXNET_EXEC_CACHE_SIZE", int, 64,
     "LRU bound on retained exec_cache entries.",
+)
+register_env(
+    "MXNET_EXEC_CACHE_DIR", str, "",
+    "disk tier of the exec cache (mxnet_tpu_torch.exec_cache_disk): a "
+    "directory holding per-entry records (optimized graph JSON, input "
+    "signatures, layout, fusion decisions, walk order) plus the kernel "
+    "libraries each plan launches, as blobs checked by their sha256. A "
+    "process restart then rebinds a seen graph with no plan built and "
+    "no nvcc run (cache_stats()['disk_hits'] counts the wins). Empty = "
+    "in-memory cache only.",
+)
+register_env(
+    "MXNET_EXEC_CACHE_DISK_BYTES", int, 1 << 30,
+    "size cap in bytes on the MXNET_EXEC_CACHE_DIR entry store: after "
+    "every write the least-recently-used entries (record + library "
+    "blobs; hit time = record mtime) are evicted until the store fits. "
+    "0 disables eviction.",
+)
+register_env(
+    "MXNET_BUNDLE_STRICT", bool, False,
+    "serving bundles: escalate restore degradations to errors. By "
+    "default a bundle written under another environment (torch, CUDA, "
+    "card) loads with a warning and builds its plans and kernels as a "
+    "plain load does; strict mode raises BundleError instead.",
+)
+register_env(
+    "MXNET_BUNDLE_VERIFY", bool, True,
+    "serving bundles: verify the manifest's parameter content hash "
+    "(over array names, dtypes, shapes, bytes) on load_bundle; a "
+    "mismatch raises BundleError. 0 skips hashing.",
+)
+register_env(
+    "MXNET_BUNDLE_QUANTIZE", str, "",
+    "serving bundles: default save_bundle quantization scheme. 'int8' "
+    "stores the parameter set weight-only int8 with per-channel "
+    "(last-axis) float32 scales, about 4x smaller; restore dequantizes "
+    "on load. Empty (default) stores full precision. The explicit "
+    "save_bundle(quantize=...) argument wins over this env.",
+)
+register_env(
+    "MXNET_BUNDLE_QUANTIZE_OVERRIDE", bool, False,
+    "serving bundles: load a bundle whose manifest quantization record "
+    "and stored arrays DISAGREE about precision (stripped scale planes "
+    "or stripped record). Default refuses with BundleError; 1 "
+    "downgrades the refusal to a warning.",
 )
 register_env(
     "MXNET_SERVING_MAX_BATCH", int, 8,

@@ -42,13 +42,8 @@ from mxnet_tpu_torch import recordio as trec  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# reference test -> the ROADMAP.md item that holds it back
-NOT_REPLAYED = {
-    "test_data_pipeline.py::test_fault_injector_step_spec":
-        "A.10 (fault.FaultInjector)",
-    "test_data_pipeline.py::test_fit_mid_epoch_kill_and_bit_identical_resume":
-        "A.10 (fault.fit_auto_resume, kill and resume)",
-}
+# reference test -> the ROADMAP.md item that holds it back (none now)
+NOT_REPLAYED = {}
 NATIVE_IO_CASES = ("test_uint8_batches_train_fused",)
 
 
@@ -76,8 +71,7 @@ def _replay(test_file, only=None):
                 or (isinstance(n, ast.FunctionDef) and n.name in only)]
         src = "\n\n".join(ast.unparse(n) for n in keep)
     src = re.sub(r"\bmxnet_tpu\b(?!/)", "mxnet_tpu_torch", src)
-    # fault.py is A.10 and native is A.11: only NOT_REPLAYED cases use them
-    src = src.replace("from mxnet_tpu_torch import fault\n", "")
+    # native is A.11: test_native_io.py's cases that use it are not kept
     src = src.replace("from mxnet_tpu_torch import native, recordio",
                       "from mxnet_tpu_torch import recordio")
     ns = {"__name__": f"replay_{path.stem}", "__file__": str(path)}

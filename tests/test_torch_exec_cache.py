@@ -8,7 +8,9 @@ JAX package's exec_cache, on the CPU.
   and MXNET_BACKWARD_DO_MIRROR unset).
 - The same sequence of binds in both packages gives equal `hits`,
   `misses`, `traces`, `evictions`, `shared_hits` and
-  `canonical_collisions` after every step: binds and rebinds, reshapes
+  `canonical_collisions`, and the disk tier's `disk_hits`, `disk_misses`
+  and `disk_writes` (the suite's conftest mounts a disk root in every
+  test process), after every step: binds and rebinds, reshapes
   there and back, a BucketingModule's bucket revisits, shared_exec, the
   cache switched off, and an LRU of 2. The port's `jit_builds` and
   `graph_replays` stay 0 (an eager walk has no jit closures or traced
@@ -34,7 +36,8 @@ from mxnet_tpu_torch import exec_cache as tcache  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-5
 COUNTERS = ("hits", "misses", "traces", "evictions", "shared_hits",
-            "canonical_collisions")
+            "canonical_collisions", "disk_hits", "disk_misses",
+            "disk_writes")
 
 
 def _replay(test_file):
@@ -78,7 +81,7 @@ def test_exec_cache_replayed(name, monkeypatch):
 
 def _counters(cache):
     s = cache.cache_stats()
-    return {k: s[k] for k in COUNTERS}
+    return {k: s.get(k) for k in COUNTERS}
 
 
 def _mlp(mx):

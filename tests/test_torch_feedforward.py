@@ -334,8 +334,8 @@ def test_kvstores_and_elastic_refused():
     store (by class and type) and the same update_on_kvstore for every
     name and device count, 'local' putting the optimizer on the store
     only for a parameter of 16 M elements or more. Unknown names and
-    elastic training (A.10) are still refused; FeedForward trains with
-    dist_sync in one process."""
+    elastic training (A.10, part 3) are still refused; FeedForward
+    trains with dist_sync in one process."""
     cases = [(None, 1), ("local", 1), ("local", 2), ("device", 1),
              ("device", 2), ("dist_sync", 1), ("dist_device_sync", 2),
              ("dist_async", 1), ("tpu", 1), ("tpu", 2),
@@ -352,7 +352,7 @@ def test_kvstores_and_elastic_refused():
                     (type(j[0]).__name__, j[0].type)
     with pytest.raises(MXNetError, match="unknown KVStore"):
         tmx.model._create_kvstore("nonsense", 2, {})
-    with pytest.raises(MXNetError, match="A.10"):
+    with pytest.raises(MXNetError, match="A.10, part 3"):
         tmx.model.fit_elastic("localhost:1", None)
     X, y = _toy_data()
     model = tmx.FeedForward(_mlp(tmx), ctx=tmx.cpu(), num_epoch=1).fit(

@@ -49,10 +49,7 @@ from mxnet_tpu_torch.telemetry import registry as treg  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-5
 
-NOT_REPLAYED = {
-    "test_runlog_resume_continuity_after_kill":
-        "A.10 (fault.fit_auto_resume, FaultInjector)",
-}
+NOT_REPLAYED = {}
 REWRITTEN = {
     "test_sentinel_compute_matches_numpy_oracle":
         "SentinelSpec.compute takes torch tensors",
@@ -73,9 +70,6 @@ _ENV = ("MXNET_NUMERICS", "MXNET_NUMERICS_INTERVAL",
 def _replay(test_file):
     path = ROOT / "tests" / test_file
     src = re.sub(r"\bmxnet_tpu\b(?!/)", "mxnet_tpu_torch", path.read_text())
-    # the fault module waits for A.10: only its NOT_REPLAYED case uses it
-    src = src.replace("from mxnet_tpu_torch import fault, profiler",
-                      "from mxnet_tpu_torch import profiler")
     ns = {"__name__": f"replay_{path.stem}", "__file__": str(path)}
     exec(compile(src, str(path), "exec"), ns)
     return ns

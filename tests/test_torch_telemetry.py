@@ -7,8 +7,8 @@ http, flight) and profiler against the JAX package's, on the CPU.
   after the reference file's fixture): the instruments and views, the
   span ring, the serving request traced submit -> reply, the latency
   histogram, fit's step spans, the exporter over localhost, the flight
-  recorder (the excepthook case in a child interpreter).
-  - NOT_REPLAYED: the two FaultInjector cases wait for fault.py.
+  recorder (the excepthook case in a child interpreter, and the
+  FaultInjector's dumps on an injected step and epoch fault).
 - The same sequence of instrument calls and views gives byte-identical
   Prometheus text in both packages, and the default registries carry
   the same native metric names (the serving latency histogram and the
@@ -40,11 +40,8 @@ from mxnet_tpu_torch.telemetry import trace as ttrace  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# reference test -> the ROADMAP.md item that holds it back
-NOT_REPLAYED = {
-    "test_flight_record_on_fault_injector": "A.10 (fault.FaultInjector)",
-    "test_flight_record_epoch_trip": "A.10 (fault.FaultInjector)",
-}
+# reference test -> the ROADMAP.md item that holds it back (none now)
+NOT_REPLAYED = {}
 def _replay(test_file):
     path = ROOT / "tests" / test_file
     # module names only: the metric names (mxnet_tpu_*) stay as they are
@@ -70,7 +67,7 @@ def _fresh():
 def test_every_reference_telemetry_test_is_accounted_for():
     assert set(NOT_REPLAYED) <= set(ALL_TESTS)
     assert len(ALL_TESTS) == 23, ALL_TESTS
-    assert len(TELEMETRY_TESTS) == 21
+    assert len(TELEMETRY_TESTS) == 23
 
 
 @pytest.mark.parametrize("name", TELEMETRY_TESTS)
