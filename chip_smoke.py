@@ -506,6 +506,41 @@ each of which exits non-zero on failure:
                   same schedule run with the 'step:24' exception and a
                   resume in one process (a `bundles: {...}` summary
                   line)
+ 23. fleet        (runs inside phase 16 after phase 22, on phase 22's
+                  served bundle and phase 3's weights; fleet/) (a) a
+                  float32 bundle of the docs/serving.md decoder (max_batch
+                  8, 256 pages, page bucket 24, prefix cache on) behind
+                  FleetRouter(replicas=3), affinity routing, 200 ms
+                  heartbeats, each replica a fresh process on cuda:0
+                  started through the router's spawn_fn as this script
+                  (`--fleet-replica`: fleet.replica.main with the
+                  default command's arguments, no exec-cache disk root,
+                  no nvcc); every hello, the heal's replacement's too,
+                  reports 0 traces and 0 compiles. (b) 12 sampled
+                  requests (temperature 0.8, top_k 40, top_p 0.95, seeds
+                  2300-2311) in two families sharing a 256-token prefix,
+                  each with its own 32-token tail, 64 new tokens: one of
+                  each family first, the other ten once the replicas'
+                  heartbeats advertise the families' pages; at least 8
+                  routed by affinity covering 16 pages each. (c) after
+                  256 tokens out, SIGKILL of the replica with the most
+                  live decodes: every request completes, 1 death, a
+                  re-admission, the fleet healed back to 3. (d) the 12
+                  again, the busiest replica drained through the admin
+                  plane (`fleet.cli.admin_call`, timeout_ms 0): a
+                  hand-off, every request complete, 2 replicas left and
+                  no heal. Every stream of (b)-(d) equals the same
+                  request decoded alone in this process with the prefix
+                  cache off but at counted near ties; each cleanly
+                  exited decoder replica launched B4 16 times a decode
+                  step. (e) Inception-ResNet-v2's served bundle behind
+                  FleetRouter(replicas=1), started with (a)'s:
+                  router.predict of 1 and of 8 images (one request an
+                  image, collected into one batch by the replica's
+                  batcher) equals phase 22's restored outputs bit for
+                  bit after JSON's float round trip, B1/B2 launched; the
+                  latency through the router beside the in-process
+                  `infer` (a `fleet: {...}` summary line)
 
 Phases 6, 9, 11, 12, 13, 17 and 18 train through the fused step, each
 step after its first a replay of one captured CUDA graph (phase 10's
@@ -519,9 +554,10 @@ versions).
 
 The last two lines of standard output are
 one JSON object with every kernel's numbers and one JSON object naming
-the device; the summary lines of phases 17, 18, 11, 16, 22, 12, 13, 14, 15
-19 and 20 (`fused: {...}`, `pipeline: {...}`, `surface: {...}`,
-`one_shot: {...}`, `bundles: {...}`, `lm: {...}`, `vision: {...}`,
+the device; the summary lines of phases 17, 18, 11, 16, 22, 23, 12, 13,
+14, 15, 19 and 20 (`fused: {...}`, `pipeline: {...}`, `surface: {...}`,
+`one_shot: {...}`, `bundles: {...}`, `fleet: {...}`, `lm: {...}`,
+`vision: {...}`,
 `decode: {...}`, `bucketing: {...}`, `data_parallel: {...}`,
 `model_parallel: {...}`) come before them.
 """
@@ -6505,6 +6541,11 @@ def _dp_worker(out):
     with open(os.path.join(out, f"mp-{rank}.json"), "w") as f:
         json.dump(mp, f)
     kv._barrier()
+    # join the gloo group's threads before the interpreter's teardown,
+    # which can otherwise end a worker in std::terminate (rc 250) after
+    # its work is written
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 def _dp_reference_step(torch, mx, cfg):
@@ -8403,7 +8444,9 @@ def phase_bundles(torch, mx, served, decoder, cfg, card, workers,
             "phase16_load_and_warmup_s": one_shot_parts.get(
                 "load_and_warmup"),
             "phase1_build_s": build_s}
-        shutil.rmtree(tmp, ignore_errors=True)
+        # the served bundle stays for phase 23's predict replica
+        shutil.rmtree(decoded_dir, ignore_errors=True)
+        res["served_dir"] = served_dir
 
         # (d) fault: killed by SIGKILL, resumed
         res["fault"] = _bundle_fault(out, procs, _bundle_config()["fault"])
@@ -8417,6 +8460,540 @@ def phase_bundles(torch, mx, served, decoder, cfg, card, workers,
         "int8 decoder restored in a fresh process with no plan built and "
         "no nvcc run, outputs bit for bit and streams token for token; "
         "fit_auto_resume killed by SIGKILL and resumed")
+    return res
+
+
+# ----------------------------------------------------------- phase 23
+FLEET_REPLICAS = 3
+FLEET_MAX_BATCH = 8
+FLEET_PAGES = 256
+FLEET_PAGE_BUCKETS = (24,)     # a 288-token prompt and 64 new tokens: 22
+FLEET_PREFIX = 256             # tokens (16 pages) a family shares
+FLEET_TAIL = 32                # each request's own tokens after it
+FLEET_REQUESTS = 12            # two families, alternating
+FLEET_NEW = 64
+FLEET_SEED = 2300              # request i samples from seed 2300 + i
+FLEET_KILL_AFTER = 256         # tokens out in all before the SIGKILL
+FLEET_TIMEOUT = 600
+# the predict replica's batcher waits this long for a batch to fill, so
+# that (e)'s 8 requests, which reach it one JSON frame at a time (5.3 MB
+# each, 2.0-3.0 s for the 8 on the H100 machine), run as phase 22's
+# batch of 8
+FLEET_PREDICT_WAIT_US = 8_000_000
+FLEET_PREDICT_BATCHES = (1, 8)
+
+
+def _fleet_replica(out, argv):
+    """Phase 23's replica process (started through the routers'
+    spawn_fn): `mxnet_tpu_torch.fleet.replica.main(argv)`, the router's
+    default command's entry point, with phase 22's restore settings
+    (cuDNN deterministic, TF32 off, no nvcc); it counts kernel launches
+    from its first served request and, at a clean exit (stop or drain),
+    writes them with its decode stats to out/<id>.json. The file is
+    written when the worker closes its channel: the router kills a
+    drained replica as soon as it sees the channel's end."""
+    t_start = time.time()
+    rid = argv[argv.index("--id") + 1]
+    with open(os.path.join(out, f"{rid}.start.json"), "w") as f:
+        json.dump({"start": t_start}, f)
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    from mxnet_tpu_torch import kernels, passes
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.decoding import attention
+    from mxnet_tpu_torch.fleet import replica
+
+    def no_nvcc():
+        raise MXNetError("a fleet replica runs no nvcc")
+
+    kernels.nvcc_path = no_nvcc
+    path = os.path.join(out, f"{rid}.json")
+    lock = threading.Lock()
+
+    def write_exit(model):
+        res = {"paged_launches": attention.launch_counts(),
+               "codegen_launches": passes.launch_counts(),
+               "nvcc_runs": kernels.nvcc_runs(),
+               "process_s": time.time() - t_start}
+        if hasattr(model, "scheduler"):
+            snap = model.stats.snapshot()
+            res["steps"] = snap["steps"]
+            res["decode_tokens"] = snap["decode_tokens"]
+        with open(path + ".tmp", "w") as f:
+            json.dump(res, f)
+        os.replace(path + ".tmp", path)
+
+    run = replica.ReplicaWorker.run
+
+    def counted_run(self):
+        attention.reset_launch_counts()
+        passes.reset_launch_counts()
+        close = self.chan.close
+
+        def close_counted():
+            with lock:
+                if not os.path.exists(path):
+                    write_exit(self.model)
+            close()
+
+        self.chan.close = close_counted
+        return run(self)
+
+    replica.ReplicaWorker.run = counted_run
+    sys.exit(replica.main(argv))
+
+
+def _fleet_env(predict):
+    """A replica's environment: no disk root of the exec cache, no nvcc
+    on PATH and no CUDA_HOME (phase 22's restore worker's); the predict
+    replica also takes that worker's cuBLAS workspace and a batcher wait
+    long enough to collect (e)'s batch of 8."""
+    env = _worker_env(True)
+    if predict:
+        env["MXNET_SERVING_MAX_WAIT_US"] = str(FLEET_PREDICT_WAIT_US)
+    else:
+        env.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    return env
+
+
+def _fleet_spawner(out, bundle, hb_ms, predict, spawned):
+    """A spawn_fn that starts this script as a replica (`_fleet_replica`)
+    with the arguments of the router's default command, its output to
+    files in `out`; records each spawn's wall time."""
+    from mxnet_tpu_torch import gpu
+    from mxnet_tpu_torch.fleet.router import replica_command
+
+    def spawn(rid, port):
+        argv = replica_command(bundle, port, rid, hb_ms, gpu(0))[3:]
+        spawned[rid] = time.time()
+        with open(os.path.join(out, f"{rid}.out"), "w") as so, \
+                open(os.path.join(out, f"{rid}.err"), "w") as se:
+            return subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--fleet-replica", out, *argv],
+                env=_fleet_env(predict), stdout=so, stderr=se,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                start_new_session=True)
+
+    return spawn
+
+
+def _fleet_tails(dirs):
+    """The last lines of every replica's stderr (a failed phase names
+    them)."""
+    tails = []
+    for d in dirs.values():
+        for name in sorted(os.listdir(d)):
+            if name.endswith(".err"):
+                with open(os.path.join(d, name)) as f:
+                    text = f.read()
+                if text.strip():
+                    tails.append(f"[{os.path.basename(d)}/{name}] "
+                                 f"{text[-1500:]}")
+    return " ".join(tails)
+
+
+def _fleet_exits(d, rids):
+    """{replica id: what it wrote at its clean exit, and its start}."""
+    exits = {}
+    for rid in rids:
+        with open(os.path.join(d, f"{rid}.start.json")) as f:
+            start = json.load(f)["start"]
+        path = os.path.join(d, f"{rid}.json")
+        exits[rid] = {"start": start}
+        if os.path.exists(path):
+            with open(path) as f:
+                exits[rid].update(json.load(f))
+    return exits
+
+
+class _FleetWatch:
+    """First wall time each replica id appears among a router's live
+    handles (its hello), polled every 5 ms on a thread; keyed by
+    (router name, replica id)."""
+
+    def __init__(self, routers):
+        self.routers = routers
+        self.hello = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def _poll(self):
+        while not self._stop.wait(0.005):
+            now = time.time()
+            for r in self.routers:
+                with r._lock:
+                    rids = list(r._handles)
+                for rid in rids:
+                    self.hello.setdefault((r.name, rid), now)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(5)
+
+
+def _fleet_prompts(vocab):
+    rs = np.random.RandomState(FLEET_SEED)
+    heads = [rs.randint(2, vocab, size=FLEET_PREFIX).tolist()
+             for _ in range(2)]
+    return [heads[i % 2] + rs.randint(2, vocab, size=FLEET_TAIL).tolist()
+            for i in range(FLEET_REQUESTS)]
+
+
+def _fleet_traffic(router, prompts, samplings, first=None):
+    """Submit every request (the first `first` alone, then, once their
+    families' prefixes are advertised, the rest) and stream each on its
+    own thread. Returns (futures, token lists, first-token times, the
+    tokens-out counter, threads)."""
+    n = len(prompts)
+    toks = [[] for _ in range(n)]
+    t_first = [None] * n
+    out = {"n": 0}
+    lock = threading.Lock()
+    futs, threads = [None] * n, []
+
+    def consume(i, t0):
+        for tok in futs[i].stream(timeout=FLEET_TIMEOUT):
+            if not toks[i]:
+                t_first[i] = time.perf_counter() - t0
+            toks[i].append(tok)
+            with lock:
+                out["n"] += 1
+
+    def send(i):
+        t0 = time.perf_counter()
+        futs[i] = router.submit(prompts[i], max_new_tokens=FLEET_NEW,
+                                sampling=samplings[i])
+        th = threading.Thread(target=consume, args=(i, t0), daemon=True)
+        th.start()
+        threads.append(th)
+
+    order = list(range(n))
+    if first:
+        for i in order[:first]:
+            send(i)
+        live = [h.id for h in router._candidates()]
+        t = time.perf_counter()
+        while not all(router.affinity.best(prompts[i], live)[1]
+                      >= FLEET_PREFIX // 16 for i in order[:first]):
+            check(time.perf_counter() - t < FLEET_TIMEOUT,
+                  "the replicas never advertised the families' prefixes")
+            time.sleep(0.01)
+        order = order[first:]
+    for i in order:
+        send(i)
+    return futs, toks, t_first, out, threads
+
+
+def _fleet_finish(futs, toks, threads, label):
+    for th in threads:
+        th.join(FLEET_TIMEOUT)
+    check(not any(th.is_alive() for th in threads),
+          f"{label}: a stream did not finish")
+    errs = [f.exception(timeout=FLEET_TIMEOUT) for f in futs]
+    check(not any(errs), f"{label}: failed requests {errs}")
+    for f, t in zip(futs, toks):
+        check(f.result(timeout=FLEET_TIMEOUT) == t,
+              f"{label}: a stream and its result differ")
+    return toks
+
+
+def _served_batches(router):
+    """Batches the one-replica fleet's served model has run (its
+    ServingStats, fetched from the replica)."""
+    (rid,) = router.status()["replicas"]
+    return router.replica_stats(rid, timeout=FLEET_TIMEOUT)["stats"][
+        "batches"]
+
+
+def _busiest(router):
+    """The live replica holding the most live decodes."""
+    with router._lock:
+        counts = {}
+        for p in router._pending.values():
+            if p.kind == "decode" and p.replica_id in router._handles:
+                counts[p.replica_id] = counts.get(p.replica_id, 0) + 1
+    return max(sorted(counts), key=lambda r: counts[r]), counts
+
+
+def _wait_until(pred, what, timeout=FLEET_TIMEOUT):
+    t = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t < timeout, f"timed out: {what}")
+        time.sleep(0.01)
+
+
+def phase_fleet(torch, mx, served, decoder, cfg, card, out, served_dir,
+                images):
+    """Phase 23 (module docstring): three decoder replicas restored from
+    one float32 bundle behind FleetRouter, a SIGKILL mid-stream, a drain
+    through the admin plane, streams against the same requests decoded
+    alone in this process; Inception-ResNet-v2 behind a one-replica
+    fleet, bit for bit against phase 22's restored outputs."""
+    from mxnet_tpu_torch import decoding as dec
+    from mxnet_tpu_torch import fleet
+    from mxnet_tpu_torch.decoding import SamplingParams
+    from mxnet_tpu_torch.fleet.cli import admin_call
+    from mxnet_tpu_torch.serving import bundle as sb
+
+    import signal
+
+    timing = {}
+    part = _parts(timing)
+    res = {}
+    dev = torch.device(BUNDLE_DEVICE)
+    work = os.path.join(out, "fleet")
+    dirs = {"fleet23": os.path.join(work, "decode"),
+            "fleet23_predict": os.path.join(work, "predict")}
+    for d in dirs.values():
+        os.makedirs(d)
+    hb_ms = fleet.config.heartbeat_ms()
+    # (a) the float32 bundle of phase 3's weights, prefix cache on
+    lm = dec.DecodedModel(
+        "fleet_lm", 1, decoder, cfg, max_batch=FLEET_MAX_BATCH,
+        num_pages=FLEET_PAGES, page_buckets=FLEET_PAGE_BUCKETS,
+        kv_dtype="float32", prefix_cache=True, device=dev)
+    try:
+        t = time.perf_counter()
+        lm_dir = sb.save_bundle(lm, os.path.join(work, "lm.bundle"))
+        res["save_s"] = time.perf_counter() - t
+    finally:
+        lm.close()
+    del lm
+    res["bundle_bytes"] = _dir_bytes(lm_dir)
+    part("bundle")
+    spawned = {name: {} for name in dirs}
+    router = fleet.FleetRouter(
+        lm_dir, replicas=FLEET_REPLICAS, name="fleet23",
+        spawn_fn=_fleet_spawner(dirs["fleet23"], lm_dir, hb_ms, False,
+                                spawned["fleet23"]))
+    predictor = fleet.FleetRouter(
+        served_dir, replicas=1, name="fleet23_predict",
+        spawn_fn=_fleet_spawner(dirs["fleet23_predict"], served_dir, hb_ms,
+                                True, spawned["fleet23_predict"]))
+    watch = _FleetWatch([router, predictor])
+    ref = None
+    try:
+        t_spawn = time.perf_counter()
+        router.start(wait=False)
+        predictor.start(wait=False)
+        # the references while the replicas restore: each request alone,
+        # prefix cache off, on the same weights
+        prompts = _fleet_prompts(cfg.vocab)
+        samplings = [SamplingParams(seed=FLEET_SEED + i, **SAMPLED)
+                     for i in range(FLEET_REQUESTS)]
+        ref = dec.DecodedModel(
+            "fleet_ref", 1, decoder, cfg, max_batch=FLEET_MAX_BATCH,
+            num_pages=FLEET_PAGES, page_buckets=FLEET_PAGE_BUCKETS,
+            kv_dtype="float32", prefix_cache=False, device=dev)
+        want, ttft_ref = [], None
+        for i, p in enumerate(prompts):
+            t = time.perf_counter()
+            toks = []
+            for tok in ref.stream(p, max_new_tokens=FLEET_NEW,
+                                  sampling=samplings[i],
+                                  timeout=FLEET_TIMEOUT):
+                if ttft_ref is None:
+                    ttft_ref = time.perf_counter() - t
+                toks.append(tok)
+            want.append(toks)
+        part("references")
+        try:
+            router.wait_ready(FLEET_REPLICAS, timeout=FLEET_TIMEOUT)
+            predictor.wait_ready(1, timeout=FLEET_TIMEOUT)
+        except Exception as e:
+            fail(f"phase 23's replicas did not start: {e} "
+                 f"{_fleet_tails(dirs)}")
+        res["ready_s"] = time.perf_counter() - t_spawn
+        log(f"fleet: 4 replicas ready {res['ready_s']!r} s after their "
+            f"spawn; references {timing['parts_s']['references']!r} s")
+        res["hellos"] = {
+            f"{r.name}/{rid}": [row["traces"], row["compiles"]]
+            for r in (router, predictor)
+            for rid, row in sorted(r.status()["replicas"].items())}
+        check(all(v == [0, 0] for v in res["hellos"].values()),
+              f"a replica's hello reports traces/compiles "
+              f"{res['hellos']}")
+        part("start")
+
+        # (b) traffic: one request of each family first, then the rest
+        t = time.perf_counter()
+        futs, got, t_first, n_out, threads = _fleet_traffic(
+            router, prompts, samplings, first=2)
+        snap = router.stats.snapshot()
+        res["routed"] = {k: snap[k] for k in (
+            "routed_affinity", "routed_least_loaded",
+            "affinity_pages_covered")}
+        check(snap["routed_affinity"] >= 8
+              and snap["affinity_pages_covered"] >= 8 * FLEET_PREFIX // 16,
+              f"affinity routing: {res['routed']}")
+        # (c) SIGKILL the replica with the most live decodes mid-stream
+        _wait_until(lambda: n_out["n"] >= FLEET_KILL_AFTER,
+                    "tokens before the kill")
+        victim, live = _busiest(router)
+        pid = router.status()["replicas"][victim]["pid"]
+        os.kill(pid, signal.SIGKILL)
+        res["killed"] = {"replica": victim, "live_decodes": live,
+                         "tokens_out": n_out["n"]}
+        got_b = _fleet_finish(futs, got, threads, "(b)/(c)")
+        res["traffic_b_s"] = time.perf_counter() - t
+        res["tokens_per_s_b"] = sum(map(len, got_b)) / res["traffic_b_s"]
+        res["ttft_router_s"] = t_first[0]
+        res["ttft_in_process_s"] = ttft_ref
+        snap = router.stats.snapshot()
+        check(snap["replica_deaths"] == 1 and snap["readmissions"] >= 1,
+              f"deaths {snap['replica_deaths']}, readmissions "
+              f"{snap['readmissions']}")
+        router.wait_ready(FLEET_REPLICAS, timeout=FLEET_TIMEOUT)
+        rows = router.status()["replicas"]
+        for rid, row in rows.items():
+            res["hellos"][f"{router.name}/{rid}"] = [row["traces"],
+                                                     row["compiles"]]
+        check(len(rows) == FLEET_REPLICAS and victim not in rows
+              and all(v == [0, 0] for v in res["hellos"].values()),
+              f"the heal: {sorted(rows)}, hellos {res['hellos']}")
+        res["readmissions"] = snap["readmissions"]
+        part("traffic_kill")
+        log(f"fleet: (b)/(c) {res['traffic_b_s']!r} s, killed "
+            f"{res['killed']}, healed in {timing['parts_s']['traffic_kill']!r}"
+            f" s of traffic and heal")
+
+        # (d) the same traffic again; drain the busiest replica through
+        # the admin plane once tokens flow
+        addr = f"127.0.0.1:{router.port}"
+        t = time.perf_counter()
+        futs, got, _, n_out, threads = _fleet_traffic(router, prompts,
+                                                      samplings)
+        _wait_until(lambda: n_out["n"] >= FLEET_REQUESTS,
+                    "tokens before the drain")
+        drained, live = _busiest(router)
+        drain = admin_call(addr, "drain", replica=drained, timeout_ms=0)
+        got_d = _fleet_finish(futs, got, threads, "(d)")
+        res["traffic_d_s"] = time.perf_counter() - t
+        res["tokens_per_s_d"] = sum(map(len, got_d)) / res["traffic_d_s"]
+        res["drained"] = {"replica": drained, "live_decodes": live,
+                          "handoffs": drain["handoffs"]}
+        check(drain["handoffs"] >= 1, f"the drain handed off {drain}")
+        _wait_until(lambda: drained not in router.status()["replicas"],
+                    "the drained replica's exit")
+        time.sleep(3 * hb_ms / 1e3)       # a heal would have started
+        survivors = sorted(admin_call(addr, "status")["replicas"])
+        snap = router.stats.snapshot()
+        check(len(survivors) == FLEET_REPLICAS - 1
+              and drained not in survivors
+              and snap["replica_deaths"] == 1 and snap["handoffs"] >= 1
+              and router.ledger.snapshot()["drains_escalated"] == 0,
+              f"after the drain: survivors {survivors}, {snap}")
+        res["survivors"] = survivors
+        res["stats"] = {k: v for k, v in snap.items() if k != "replicas"}
+        part("traffic_drain")
+        log(f"fleet: (d) {res['traffic_d_s']!r} s, drained "
+            f"{res['drained']}")
+        router.stop()
+
+        # the streams against the references: exact, or a counted near
+        # tie on a replica whose prefix cache was hit
+        ties = _divergences(ref.engine, prompts, got_b + got_d,
+                            want + want, samplings + samplings,
+                            "fleet streams vs each request alone")
+        res["near_ties"] = len(ties)
+        part("streams")
+
+        # (e) one-shot predict through the one-replica fleet
+        restored = np.load(os.path.join(out, "restore.npz"))
+        pred = {}
+        for b in FLEET_PREDICT_BATCHES:
+            rows_out = [None] * b
+
+            def one(i):
+                rows_out[i] = predictor.predict(
+                    {"data": images[i]}, timeout=FLEET_TIMEOUT)
+
+            batches0 = _served_batches(predictor)
+            t = time.perf_counter()
+            ths = [threading.Thread(target=one, args=(i,), daemon=True)
+                   for i in range(b)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(FLEET_TIMEOUT)
+            fleet_ms = (time.perf_counter() - t) * 1e3
+            check(all(r is not None for r in rows_out),
+                  f"predict at batch {b} did not answer")
+            flushes = _served_batches(predictor) - batches0
+            check(flushes == 1, f"the replica ran the {b} requests as "
+                  f"{flushes} batches, not as one of {b}")
+            got_rows = np.stack([np.asarray(r[0], np.float32)
+                                 for r in rows_out])
+            check(np.array_equal(got_rows, restored[f"served{b}"]),
+                  f"predict through the fleet at batch {b} differs from "
+                  f"phase 22's restored outputs")
+            t = time.perf_counter()
+            np.asarray(served.infer({"data": images[:b]}, b, 0)[0])
+            pred[b] = {"fleet_ms": fleet_ms,
+                       "in_process_ms": (time.perf_counter() - t) * 1e3,
+                       "request_json_bytes": b * len(json.dumps(
+                           images[0].tolist(), separators=(",", ":")))}
+        res["predict"] = pred
+        res["predict_batcher_wait_ms"] = FLEET_PREDICT_WAIT_US / 1e3
+        part("predict")
+        predictor.stop()
+    finally:
+        watch.stop()
+        router.stop()
+        predictor.stop()
+        if ref is not None:
+            ref.close()
+    # what the replicas counted at their clean exits
+    dexits = _fleet_exits(dirs["fleet23"], spawned["fleet23"])
+    pexits = _fleet_exits(dirs["fleet23_predict"],
+                          spawned["fleet23_predict"])
+    killed = res["killed"]["replica"]
+    b4 = {}
+    for rid, e in dexits.items():
+        if rid == killed:
+            check("steps" not in e, f"the killed replica {rid} wrote {e}")
+            continue
+        check("steps" in e, f"replica {rid} did not exit cleanly "
+              f"{_fleet_tails(dirs)}")
+        n = e["paged_launches"]["paged_attention_float"]
+        b4[rid] = {"launches": n, "steps": e["steps"]}
+        check(n == cfg.n_layers * e["steps"],
+              f"replica {rid} launched B4 {n} times in {e['steps']} decode "
+              f"steps of {cfg.n_layers} layers")
+        check(e["nvcc_runs"] == 0, f"replica {rid} ran nvcc")
+    check(sum(v["steps"] for v in b4.values()) > 0, f"no decode step {b4}")
+    (pexit,) = pexits.values()
+    check("codegen_launches" in pexit,
+          f"the predict replica did not exit cleanly {_fleet_tails(dirs)}")
+    gen = pexit["codegen_launches"]
+    check(gen.get("elementwise", 0) > 0 and gen.get("scale_bias_act", 0) > 0
+          and pexit["nvcc_runs"] == 0,
+          f"the predict replica's B1/B2 launches {gen}, nvcc runs "
+          f"{pexit['nvcc_runs']}")
+    res["launches"] = {"b4_by_replica": b4,
+                       "b4": sum(v["launches"] for v in b4.values()),
+                       "b1": gen.get("elementwise", 0),
+                       "b2": gen.get("scale_bias_act", 0)}
+    res["hello_s"] = {}
+    for name, exits in (("fleet23", dexits), ("fleet23_predict", pexits)):
+        for rid, e in exits.items():
+            hello = watch.hello.get((name, rid))
+            if hello is not None:
+                res["hello_s"][f"{name}/{rid}"] = {
+                    "from_spawn": hello - spawned[name][rid],
+                    "from_process_start": hello - e["start"]}
+    res["parts_s"] = timing["parts_s"]
+    res["card"] = card
+    log("phase 23 ok: three decoder replicas and the heal's replacement "
+        "restored from one bundle with no trace and no compile, a SIGKILL "
+        "and a drain mid-stream with no request lost, streams equal to "
+        "each request alone, predict through a one-replica fleet bit for "
+        "bit")
     return res
 
 
@@ -8525,6 +9102,10 @@ def main():
                     "(phases 6 and 9) and print where the device time "
                     "goes (phase 3's serving window is profiled in every "
                     "run)")
+    if sys.argv[1:2] == ["--fleet-replica"]:
+        # phase 23's replica: the rest is the replica's own arguments
+        _fleet_replica(sys.argv[2], sys.argv[3:])
+        return
     args = ap.parse_args()
     if args.dp_worker:
         _dp_worker(args.dp_worker)
@@ -8654,13 +9235,19 @@ def main():
     surface = run("surface", phase_surface, torch, mx, trained, card,
                   examples)
     def bundles(model, images, parts):
-        return run("bundles", phase_bundles, torch, mx, model, decoder,
-                   cfg, card, bundle_workers, images, parts, build_s)
+        res = run("bundles", phase_bundles, torch, mx, model, decoder,
+                  cfg, card, bundle_workers, images, parts, build_s)
+        # phase 23 on phase 22's served bundle and phase 3's weights
+        run("fleet", phase_fleet, torch, mx, model, decoder, cfg, card,
+            bundle_workers[1], res.pop("served_dir"), images)
+        return res
 
     one_shot = run("one_shot", phase_one_shot, torch, mx, trained, decoder,
                    cfg, serving, card, bundles=bundles)
-    # phase 22 ran inside phase 16's call
-    report["phase_s"]["one_shot"] -= report["phase_s"]["bundles"]
+    # phases 22 and 23 ran inside phase 16's call
+    report["phase_s"]["one_shot"] -= (report["phase_s"]["bundles"]
+                                      + report["phase_s"]["fleet"])
+    fleet_res = report["fleet"]
     bundle_res = one_shot.pop("bundles")
     report["bundles"] = bundle_res
     del trained, decoder
@@ -8708,6 +9295,13 @@ def main():
         elif k["name"] == "paged_attention_int8":
             k["launches_bundle_restore"] = \
                 restored["paged_launches"]["paged_attention_int8"]
+    # phase 23: B4 in the decoder replicas that exited cleanly, B1/B2 in
+    # the predict replica
+    for k in line["kernels"]:
+        key = {"fusion_elementwise": "b1", "fusion_scale_bias_act": "b2",
+               "paged_attention_float": "b4"}.get(k["name"])
+        if key is not None:
+            k["launches_fleet"] = fleet_res["launches"][key]
     report["kernels"] = line["kernels"]
     report["phase_s"]["total"] = time.perf_counter() - t_start
     # how each training phase's module trained (phases 6 and 17 must be
@@ -8748,6 +9342,15 @@ def main():
             "int8_weights_top1_agreement", "restore_wall_s", "restore",
             "cold_start", "fault", "parts_s", "card")}
         | {"phase_s": report["phase_s"]["bundles"]}))
+    log("fleet: " + json.dumps(
+        {k: fleet_res[k] for k in (
+            "hello_s", "ready_s", "hellos", "ttft_router_s",
+            "ttft_in_process_s", "tokens_per_s_b", "tokens_per_s_d",
+            "routed", "killed", "drained", "readmissions", "survivors",
+            "stats", "near_ties", "launches", "predict",
+            "predict_batcher_wait_ms", "save_s", "bundle_bytes", "parts_s",
+            "card")}
+        | {"phase_s": report["phase_s"]["fleet"]}))
     prof = serving["profile"]
     log("decode: " + json.dumps({
         "greedy": {"tokens_per_s": serving["e2e_tokens_per_s"],

@@ -48,6 +48,12 @@ mxnet_tpu. Its slices so far:
   compile tier       the bucketed optimizer update, fused bucketing, the
                      opt-in `layout` pass, `passes.cost_model` and the
                      `passes.Autotuner`
+  fleet              `fleet.FleetRouter` over replica processes that each
+                     restore one serving bundle on the card
+                     (`python -m mxnet_tpu_torch.fleet.replica`), prefix-
+                     affinity routing, heal after a SIGKILL, drain and
+                     hand-off, and the admin CLI
+                     (`python -m mxnet_tpu_torch.fleet.cli`)
   one-shot serving   `serving.ModelServer` (dynamic batching over a
                      grid of `Predictor` cells warmed at load, decoders
                      beside them), the `exec_cache` of bind plans, the
@@ -120,6 +126,7 @@ from . import checkpoint_sharded  # noqa: F401
 from .checkpoint_sharded import load_sharded, save_sharded
 from . import analysis  # noqa: F401
 from . import fault  # noqa: F401
+from . import fleet  # noqa: F401
 from .base import MXNetError
 from .callback import Speedometer
 from .context import Context, cpu, current_context, default_context, gpu
@@ -140,8 +147,9 @@ __all__ = ["AttrScope", "Context", "Executor", "FeedForward", "Group",
            "current_context", "data", "decoding", "default_context",
            "exec_cache",
            "executor",
-           "executor_manager", "fault", "feed_forward", "gpu", "image",
-           "image_det", "init", "initializer", "io", "kv", "kvstore",
+           "executor_manager", "fault", "feed_forward", "fleet", "gpu",
+           "image", "image_det", "init", "initializer", "io", "kv",
+           "kvstore",
            "lr_scheduler", "metric", "mod", "model",
            "models", "module", "monitor", "name", "nd", "ndarray",
            "numerics", "operator", "ops", "optimizer", "parallel",

@@ -341,6 +341,59 @@ register_env(
     "downgrades the refusal to a warning.",
 )
 register_env(
+    "MXNET_FLEET_REPLICAS", int, 2,
+    "fleet: number of replica worker processes the router spawns at "
+    "start (mxnet_tpu.fleet.FleetRouter / tools/mx_fleet.py). Each "
+    "replica restores the SAME serving bundle via load_bundle, so "
+    "spin-up is zero-trace/zero-compile; the autoscaler may grow or "
+    "shrink the set afterwards within [min_replicas, max_replicas] "
+    "(docs/fleet.md).",
+)
+register_env(
+    "MXNET_FLEET_PORT", int, 0,
+    "fleet: TCP port the router's control-plane listener binds on "
+    "127.0.0.1 (replicas dial back to it, the CLI's status/scale/"
+    "drain commands use it too). 0 = pick an ephemeral port and "
+    "report it in status() / the start banner — the default for "
+    "tests and single-host serving.",
+)
+register_env(
+    "MXNET_FLEET_HEARTBEAT_MS", int, 200,
+    "fleet: replica heartbeat period in ms. Every beat carries queue "
+    "depth, the servingStats/decodingStats snapshot, and the radix-"
+    "cache digest (full cached_prefixes advertisement only when the "
+    "digest changed) — the inputs of prefix-affinity routing and "
+    "autoscaling. A replica silent for 5 heartbeat periods is marked "
+    "dead and its in-flight requests are re-admitted elsewhere.",
+)
+register_env(
+    "MXNET_FLEET_QUEUE_HIGH", int, 8,
+    "fleet autoscaler: grow threshold — when the mean per-replica "
+    "queue depth stays at or above this for `patience` consecutive "
+    "observations, one replica is added (up to max_replicas). Set "
+    "well above MXNET_FLEET_QUEUE_LOW; the gap is the hysteresis "
+    "band that stops scale flapping.",
+)
+register_env(
+    "MXNET_FLEET_QUEUE_LOW", int, 1,
+    "fleet autoscaler: shrink threshold — when the mean per-replica "
+    "queue depth stays at or below this for `patience` consecutive "
+    "observations, one replica is drained and removed (down to "
+    "min_replicas). Shrink always goes through drain: the victim "
+    "stops admitting, finishes or hands off live decodes, then "
+    "exits — zero request loss.",
+)
+register_env(
+    "MXNET_FLEET_DRAIN_TIMEOUT_MS", int, 5000,
+    "fleet: how long a draining replica may run live decodes to "
+    "completion before the rest are handed off (each unfinished "
+    "request's resume state — tokens so far + sampling seed/position "
+    "— returns to the router for re-admission elsewhere, bit-"
+    "identical under counter-based sampling). Also the router's "
+    "escalation deadline: a replica that missed it is killed and "
+    "its requests re-admitted from the router's own token record.",
+)
+register_env(
     "MXNET_SERVING_MAX_BATCH", int, 8,
     "serving: largest batch bucket of the dynamic batcher; a bucket "
     "group flushes the moment it reaches this size.",

@@ -18,7 +18,9 @@ the CPU.
   (no disk root of its own) builds no plan there (0 traces, 0 compiles,
   a disk hit and a disk load a bind, no nvcc) and answers bit for bit as
   the first did; its records carry the fusion decisions and the layout.
-- tests/test_quant.py's four bundle cases replayed on the port (its
+- tests/test_quant.py's four bundle cases and its fleet case
+  (`test_affinity_never_matches_across_dtypes`, on the port's
+  AffinityIndex) replayed on the port (its
   imports, config and `_model`, and those cases, with the module name
   `mxnet_tpu` read as `mxnet_tpu_torch`; the decoders it builds get
   device="cpu", the port's default being the card). The one the
@@ -43,6 +45,7 @@ import pytest  # noqa: E402
 
 import mxnet_tpu_torch as tmx  # noqa: E402
 from mxnet_tpu import decoding as jdec  # noqa: E402
+from mxnet_tpu import exec_cache_disk as jdisk  # noqa: E402
 from mxnet_tpu.serving import bundle as jbundle  # noqa: E402
 from mxnet_tpu.serving import quant as jwq  # noqa: E402
 from mxnet_tpu_torch import decoding as tdec  # noqa: E402
@@ -66,6 +69,7 @@ BUNDLE_CASES = ("test_weight_quantize_roundtrip_vs_numpy",
                 "test_quantized_bundle_roundtrip",
                 "test_bundle_precision_mismatch_refused",
                 "test_save_bundle_env_default_and_bad_scheme")
+FLEET_CASES = ("test_affinity_never_matches_across_dtypes",)
 _ENV = ("MXNET_BUNDLE_QUANTIZE", "MXNET_BUNDLE_QUANTIZE_OVERRIDE",
         "MXNET_BUNDLE_STRICT", "MXNET_BUNDLE_VERIFY")
 
@@ -140,13 +144,19 @@ def test_param_content_hash_equal_across_packages():
 
 
 # ----------------------------------------- the int8 decoder's roundtrip
-def test_int8_decoder_bundle_matches_the_jax_package(tmp_path):
+def test_int8_decoder_bundle_matches_the_jax_package(tmp_path,
+                                                      monkeypatch):
     """save_bundle(quantize="int8") of a kv int8 decoder, restored by a
     fresh registry on the host: the manifest says int8 twice, the stored
     weights and their hash are the JAX package's quantization of the
     same weights, and the restored stream equals, token for token, the
     JAX package's decoder and the port's, both built from the
-    dequantized weights."""
+    dequantized weights. The JAX reference builds under an empty disk
+    root of its own with no bundle overlay mounted: tests/test_quant.py's
+    decoder has this config, and a program it left in the worker's
+    shared root (tests/conftest.py) or in a bundle whose overlay a
+    failed load left mounted, built for the suite's 8 virtual devices,
+    must not be replayed."""
     cfg = tdec.DecoderConfig(**CFG_KW)
     m = tdec.DecodedModel("lm8", 1, JPARAMS, cfg, device="cpu", **MODEL_KW)
     out_dir = str(tmp_path / "lm8.bundle")
@@ -170,6 +180,8 @@ def test_int8_decoder_bundle_matches_the_jax_package(tmp_path):
     deq = jwq.dequantize_params(jstored, jrec)
 
     prompt, n = [5, 6, 7], 6
+    monkeypatch.setenv("MXNET_EXEC_CACHE_DIR", str(tmp_path / "jax_cache"))
+    monkeypatch.setattr(jdisk, "_overlays", [])
     jref = jdec.DecodedModel("ref", 1, deq, jdec.DecoderConfig(**CFG_KW),
                              **MODEL_KW)
     try:
@@ -220,18 +232,18 @@ def test_model_server_restores_a_served_bundle(tmp_path):
 
 # --------------------------------------- tests/test_quant.py, replayed
 def _replay_quant():
-    """tests/test_quant.py's imports (but the fleet's: A.10, part 2),
-    its module constants and `_model`, and the bundle cases."""
+    """tests/test_quant.py's imports, its module constants and `_model`,
+    the bundle cases and the fleet's affinity case."""
     path = ROOT / "tests" / "test_quant.py"
     tree = ast.parse(path.read_text())
     keep = []
     for node in tree.body:
         if isinstance(node, (ast.Import, ast.ImportFrom)):
-            if "fleet" not in ast.unparse(node):
-                keep.append(node)
+            keep.append(node)
         elif isinstance(node, ast.Assign) or (
                 isinstance(node, ast.FunctionDef)
-                and (node.name == "_model" or node.name in BUNDLE_CASES)):
+                and (node.name == "_model"
+                     or node.name in BUNDLE_CASES + FLEET_CASES)):
             keep.append(node)
     src = "\n\n".join(ast.unparse(n) for n in keep)
     src = re.sub(r"\bmxnet_tpu\b", "mxnet_tpu_torch", src)
@@ -255,7 +267,7 @@ def _case(name):
 
 
 def test_bundle_cases_present():
-    assert all(name in QUANT for name in BUNDLE_CASES)
+    assert all(name in QUANT for name in BUNDLE_CASES + FLEET_CASES)
     assert [m.name for m in QUANT[
         "test_quantized_bundle_roundtrip"].pytestmark] == ["slow"]
 
@@ -269,6 +281,15 @@ def test_quant_bundle_replayed(name, tmp_path, monkeypatch):
               if k in params}
     with tmx.cpu():
         fn(**kwargs)
+
+
+@pytest.mark.parametrize("name", FLEET_CASES)
+def test_quant_fleet_replayed(name):
+    """The fleet half of tests/test_quant.py: the port's AffinityIndex
+    never matches a prompt chain across KV dtypes."""
+    assert QUANT["AffinityIndex"].__module__ == \
+        "mxnet_tpu_torch.fleet.affinity"
+    QUANT[name]()
 
 
 # --------------------------------------------- a served bundle, restored

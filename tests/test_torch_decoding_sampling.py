@@ -34,6 +34,23 @@ from mxnet_tpu_torch.decoding import quant as tquant
 from mxnet_tpu_torch.decoding import sampling as tsamp
 from mxnet_tpu_torch.serving import ServingError
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _own_jax_disk_root(tmp_path_factory):
+    """The JAX references build under an empty exec-cache disk root of
+    this module's own, with no bundle overlay mounted: a program another
+    test left in the worker's shared root (tests/conftest.py) or in a
+    bundle it mounted, built for another device layout, is never
+    replayed here."""
+    from mxnet_tpu import exec_cache_disk as jdisk
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MXNET_EXEC_CACHE_DIR",
+                  str(tmp_path_factory.mktemp("jax_exec_cache")))
+        mp.setattr(jdisk, "_overlays", [])
+        yield
+
+
 NEAR_TIE_GAP = 1e-3     # top-2 gap of filtered + g (or of greedy logits)
 NEAR_TIE_MASS = 1e-6    # a token's preceding mass within this of top_p
 

@@ -21,6 +21,23 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.serving import ServingError
 from mxnet_tpu_torch.telemetry import trace
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _own_jax_disk_root(tmp_path_factory):
+    """The JAX references build under an empty exec-cache disk root of
+    this module's own, with no bundle overlay mounted: a program another
+    test left in the worker's shared root (tests/conftest.py) or in a
+    bundle it mounted, built for another device layout, is never
+    replayed here."""
+    from mxnet_tpu import exec_cache_disk as jdisk
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MXNET_EXEC_CACHE_DIR",
+                  str(tmp_path_factory.mktemp("jax_exec_cache")))
+        mp.setattr(jdisk, "_overlays", [])
+        yield
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CFG_KW = dict(vocab=32, d_model=16, n_layers=2, n_heads=2, d_ff=32,

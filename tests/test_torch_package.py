@@ -23,7 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # reference names the port does not bind yet -> the ROADMAP.md item
 MISSING = {
-    "fleet": "A.10, part 2", "elastic": "A.10, part 3",
+    "elastic": "A.10, part 3",
     "engine": "A.11", "native": "A.11", "torch_bridge": "A.11",
     "th": "A.11", "caffe_bridge": "A.11",
     "visualization": "A.13", "viz": "A.13",

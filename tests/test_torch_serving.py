@@ -37,6 +37,23 @@ from mxnet_tpu import serving as jserving  # noqa: E402
 from mxnet_tpu_torch import decoding as tdec  # noqa: E402
 from mxnet_tpu_torch import serving as tserving  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _own_jax_disk_root(tmp_path_factory):
+    """The JAX references build under an empty exec-cache disk root of
+    this module's own, with no bundle overlay mounted: a program another
+    test left in the worker's shared root (tests/conftest.py) or in a
+    bundle it mounted, built for another device layout, is never
+    replayed here."""
+    from mxnet_tpu import exec_cache_disk as jdisk
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MXNET_EXEC_CACHE_DIR",
+                  str(tmp_path_factory.mktemp("jax_exec_cache")))
+        mp.setattr(jdisk, "_overlays", [])
+        yield
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-5
 SERVING_ENV = ("MXNET_SERVING_MAX_BATCH", "MXNET_SERVING_MAX_WAIT_US",

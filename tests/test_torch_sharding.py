@@ -44,6 +44,23 @@ import mxnet_tpu_torch as tmx
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_ndarray import replay  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _own_jax_disk_root(tmp_path_factory):
+    """The JAX references build under an empty exec-cache disk root of
+    this module's own, with no bundle overlay mounted: a program another
+    test left in the worker's shared root (tests/conftest.py) or in a
+    bundle it mounted, built for another device layout, is never
+    replayed here."""
+    from mxnet_tpu import exec_cache_disk as jdisk
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MXNET_EXEC_CACHE_DIR",
+                  str(tmp_path_factory.mktemp("jax_exec_cache")))
+        mp.setattr(jdisk, "_overlays", [])
+        yield
+
+
 RING_TOL = (2e-4, 2e-5)
 GRAD_TOL = (1e-3, 1e-4)
 STEP_TOL = (2e-4, 2e-5)
