@@ -541,6 +541,26 @@ each of which exits non-zero on failure:
                   bit after JSON's float round trip, B1/B2 launched; the
                   latency through the router beside the in-process
                   `infer` (a `fleet: {...}` summary line)
+ 24. elastic      elastic/ on the card: LeNet (models/lenet.py, 1x28x28,
+                  20 and 50 filters, 500 hidden, 431,080 parameters) over
+                  1,024 seeded images, micro-batch 64, 2 logical shards,
+                  2 epochs (16 global steps), the script's own entry
+                  (`chip_smoke:elastic_lenet_job`). A coordinator in this
+                  process for each of three jobs, the agents real
+                  processes (`python -m mxnet_tpu_torch.elastic.agent
+                  --ctx gpu`) on cuda:0, all five started together: (a)
+                  one worker; (b) two, one killed by its own
+                  kill:step:6 (-9); (c) one, joined after step 5 by a
+                  second held warm at its start gate. (b)'s and (c)'s
+                  final parameters equal (a)'s bit for bit; every
+                  consumed log holds each (epoch, shard, step) batch
+                  once with the sampler's indices; one shrink in (b),
+                  one grow in (c), fewer bytes moved than a full
+                  restore, no digest mismatch, no trace after a
+                  member's warmup, every agent's parameters on cuda.
+                  Start-to-hello, step ms and the share of (a)'s step
+                  outside its two micro-batch gradients, quiesce wall
+                  and bytes moved (an `elastic: {...}` line)
 
 Phases 6, 9, 11, 12, 13, 17 and 18 train through the fused step, each
 step after its first a replay of one captured CUDA graph (phase 10's
@@ -2841,6 +2861,81 @@ def _pipeline_decode(payload):
     return x, np.float32(header.label)
 
 
+class _HostProbe:
+    """What the host did during one fit: a thread that asks for 1 ms
+    sleeps and records each wake later than 3 ms (a late wake is time the
+    GIL or a core was held by someone else), the collector's pauses over
+    2 ms, each thread's CPU ms from /proc, and the process's threads."""
+
+    def __init__(self):
+        import gc
+
+        self.late, self.gc, self._t, self._stop = [], [], {}, None
+        self._gc = gc
+        self.t0 = time.perf_counter()
+
+    @staticmethod
+    def _cpu():
+        names = {t.native_id: t.name for t in threading.enumerate()}
+        out = {}
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                with open(f"/proc/self/task/{tid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            out[f"{names.get(int(tid), 'native')}:{tid}"] = (
+                int(fields[11]) + int(fields[12]))
+        return out
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._t["gc"] = time.perf_counter()
+        elif "gc" in self._t:
+            start = self._t.pop("gc")
+            d = time.perf_counter() - start
+            if d > 2e-3:
+                self.gc.append((round((start - self.t0) * 1e3, 1),
+                                round(d * 1e3, 2), info["generation"]))
+
+    def _run(self, stop):
+        while not stop.is_set():
+            t = time.perf_counter()
+            time.sleep(1e-3)
+            late = time.perf_counter() - t - 1e-3
+            if late > 3e-3:
+                self.late.append((round((t - self.t0) * 1e3, 1),
+                                  round(late * 1e3, 2)))
+
+    def __enter__(self):
+        self.threads = sorted(t.name for t in threading.enumerate())
+        self._cpu0 = self._cpu()
+        self._gc.callbacks.append(self._on_gc)
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, args=(self._stop,),
+                                    daemon=True, name="host-probe")
+        self.t0 = time.perf_counter()
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join()
+        self._gc.callbacks.remove(self._on_gc)
+        tick_ms = 1e3 / os.sysconf("SC_CLK_TCK")
+        cpu = self._cpu()
+        self.cpu_ms = {k: (v - self._cpu0.get(k, 0)) * tick_ms
+                       for k, v in cpu.items()
+                       if v - self._cpu0.get(k, 0) > 0}
+        return False
+
+    def summary(self):
+        return {"threads_at_start": self.threads,
+                "late_wakes_ms": self.late, "gc_pauses_ms": self.gc,
+                "thread_cpu_ms": self.cpu_ms,
+                "loadavg": os.getloadavg()}
+
+
 def _pipeline_fit(torch, mx, mod, files, prefetch):
     """One epoch of mod.fit over the RecordIO file through make_pipeline:
     step ms (each ended by a synchronize), the labels each step's input
@@ -2871,13 +2966,20 @@ def _pipeline_fit(torch, mx, mod, files, prefetch):
     passes.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mod.fit(pipe, num_epoch=1, optimizer="sgd", optimizer_params=_OPT,
-            batch_end_callback=on_batch)
-    torch.cuda.synchronize()
+    with _HostProbe() as probe:
+        mod.fit(pipe, num_epoch=1, optimizer="sgd",
+                optimizer_params=_OPT, batch_end_callback=on_batch)
+        torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = passes.launch_counts()
     stats = mxdata.input_pipeline_stats()
     ring = pipe.ring_stats()
+    # each batch's marks in ms from the fit's start (the pipeline's own
+    # clock readings): the loader's decode, the stager's pull and copy,
+    # the consumer's ask
+    timeline = [{k: (round((v - t0) * 1e3, 3) if isinstance(v, float)
+                     else v) for k, v in m.items()}
+                for m in pipe.timeline() if m["epoch"] == 0]
     pipe.close()
     check(len(ends) == PIPE_RECORDS // TRAIN_BATCH,
           f"fit over the pipeline ran {len(ends)} steps")
@@ -2891,6 +2993,7 @@ def _pipeline_fit(torch, mx, mod, files, prefetch):
             "captures": fs.captures - captures0,
             "launches_per_step": {k: v / n for k, v in launches.items()},
             "launches": launches, "stats": stats, "ring": ring,
+            "timeline": timeline, "host": probe.summary(),
             "labels": labels, "state": state}
 
 
@@ -3223,6 +3326,9 @@ def phase_pipeline(torch, mx, mod, training, fused):
         check(per["elementwise"] == 1 and per["scale_bias_act"] == 39,
               f"prefetch {name}: B1/B2 launches a step {per}")
     n = len(on["step_ms"])
+    log(f"pipeline: prefetch on, each batch's timeline (ms from the "
+        f"fit's start): {json.dumps(on['timeline'])}; the host during the "
+        f"fit: {json.dumps(on['host'])}")
     check(on["stats"]["stall_count"] == 0,
           f"prefetch on: {on['stats']['stall_count']} stalls in a "
           f"steady-state epoch")
@@ -9082,6 +9188,395 @@ def _flash_line(attn):
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}]
 
 
+# ----------------------------------------------------------- phase 24
+ELASTIC_ROWS = 1024            # 8 global steps an epoch at 2 x 64
+ELASTIC_BATCH = 64
+ELASTIC_SHARDS = 2
+ELASTIC_EPOCHS = 2
+ELASTIC_SEED = 24
+ELASTIC_KILL_STEP = 6          # (b)'s victim: SIGKILL after its 6th step
+ELASTIC_JOIN_STEP = 5          # (c)'s joiner dials once 5 steps are done
+ELASTIC_DEVICE = "gpu"         # the agents' --ctx
+ELASTIC_TIMEOUT = 180
+ELASTIC_ENTRY = "chip_smoke:elastic_lenet_job"
+
+
+def elastic_lenet_job(config=None):
+    """Phase 24's job, in the elastic ci_job convention (a config dict
+    to a JobSpec, built alike in every process that resolves it): LeNet
+    (models/lenet.py) at its published width, 1x28x28 inputs, 10
+    classes, over ELASTIC_ROWS seeded synthetic images; micro-batch 64
+    over 2 logical shards, 2 epochs, momentum SGD (lr 0.001: the
+    SoftmaxOutput gradient is summed over the micro-batch's 64 rows). In
+    a process whose
+    environment names CHIP_SMOKE_ELASTIC_PROBE (phase 24's agents), the
+    ModuleStepper writes what it computed with to
+    $CHIP_SMOKE_ELASTIC_PROBE/<pid>.json (`_elastic_probe`)."""
+    from mxnet_tpu_torch.elastic.trainer import JobSpec
+    from mxnet_tpu_torch.models import get_lenet
+
+    c = {"rows": ELASTIC_ROWS, "batch_size": ELASTIC_BATCH,
+         "logical_shards": ELASTIC_SHARDS, "epochs": ELASTIC_EPOCHS,
+         "seed": ELASTIC_SEED, "lr": 0.001, "momentum": 0.9}
+    c.update(config or {})
+    rs = np.random.RandomState(int(c["seed"]))
+    x = rs.uniform(-1.0, 1.0, (int(c["rows"]), 1, 28, 28)).astype(
+        np.float32)
+    y = rs.randint(0, 10, int(c["rows"])).astype(np.float32)
+    if os.environ.get("CHIP_SMOKE_ELASTIC_PROBE"):
+        _elastic_probe(os.environ["CHIP_SMOKE_ELASTIC_PROBE"])
+    return JobSpec(get_lenet(num_classes=10), x, y,
+                   batch_size=c["batch_size"],
+                   logical_shards=c["logical_shards"], epochs=c["epochs"],
+                   seed=c["seed"], lr=c["lr"], momentum=c["momentum"])
+
+
+def _elastic_probe(out):
+    """In an agent's process: after each micro-batch's gradients,
+    out/<pid>.json holds the device types of the parameters the
+    executor computes with, the exec cache's traces after the warmup
+    micro-batch (the stepper's first) and now, and the micro-batches
+    run."""
+    from mxnet_tpu_torch import exec_cache
+    from mxnet_tpu_torch.elastic import trainer
+
+    if getattr(trainer.ModuleStepper.grads, "probed", False):
+        return
+    orig = trainer.ModuleStepper.grads
+    rec = {"pid": os.getpid(), "grads": 0}
+
+    def grads(self, x, y):
+        g = orig(self, x, y)
+        rec["grads"] += 1
+        rec["traces"] = int(exec_cache.cache_stats()["traces"])
+        rec.setdefault("traces_after_warmup", rec["traces"])
+        rec["devices"] = sorted({t.device.type for t in
+                                 self.device_params().values()})
+        path = os.path.join(out, f"{os.getpid()}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(path + ".tmp", path)
+        return g
+
+    grads.probed = True
+    trainer.ModuleStepper.grads = grads
+
+
+def _elastic_coordinator(name, initial_world, workdir, config):
+    """An ElasticCoordinator that stamps each phase change of its step
+    engine (`_set_phase_locked`, the one writer of the phase, runs under
+    the coordinator's lock): entering "slices" is the moment every
+    shard's gradients are in; leaving it, a step has completed."""
+    from mxnet_tpu_torch.elastic import ElasticCoordinator
+
+    class Timed(ElasticCoordinator):
+        def _set_phase_locked(self, phase):
+            stamps = self.__dict__.setdefault("stamps", [])
+            stamps.append((time.perf_counter(), self._phase, phase,
+                           self._step, self._gen))
+            super()._set_phase_locked(phase)
+
+    return Timed(ELASTIC_ENTRY, config, name=name, workdir=workdir,
+                 initial_world=initial_world).start()
+
+
+def _elastic_step_times(stamps):
+    """Per completed step (within one generation): its ms from the last
+    completion, the ms until every shard's gradients were in, and the ms
+    from there to the completion."""
+    out = []
+    last = None
+    grads_in = None
+    done = 0
+    for t, old, new, step, gen in stamps:
+        if new == "slices":
+            grads_in = t
+        elif old == "slices" and step > done:
+            done = step
+            if last is not None and last[1] == gen and grads_in:
+                out.append({"step": step, "ms": (t - last[0]) * 1e3,
+                            "grads_ms": (grads_in - last[0]) * 1e3,
+                            "update_ms": (t - grads_in) * 1e3})
+            last = (t, gen)
+        elif new == "grads" and old in ("forming", "quiesce", "boundary",
+                                        "parked"):
+            last = (t, gen)
+    return out
+
+
+def _elastic_audit(spec, logs):
+    """Every (epoch, shard, step) batch of the job in `logs` exactly once,
+    each with the one-member sampler's indices: the number of lines."""
+    seen = {}
+    for path in logs:
+        if not os.path.exists(path):
+            continue
+        with open(path) as f:
+            for line in f:
+                rec = json.loads(line)
+                key = (rec["epoch"], rec["shard"], rec["step"])
+                check(key not in seen, f"elastic: {key} consumed twice "
+                      f"({logs})")
+                seen[key] = rec["idx"]
+    n = len(seen)
+    truth = spec.make_sampler()
+    for epoch in range(spec.epochs):
+        truth.set_epoch(epoch)
+        truth.set_membership(0, 1)
+        for p in range(spec.batches_per_epoch):
+            for s in range(spec.logical_shards):
+                got = seen.pop((epoch, s, p), None)
+                check(got == truth.shard_batch(s, p).tolist(),
+                      f"elastic: batch {(epoch, s, p)} of {logs} is "
+                      f"{'missing' if got is None else 'not the sampler'}"
+                      f"'s")
+    check(not seen, f"elastic: batches outside the job {sorted(seen)}")
+    return n
+
+
+def _elastic_grads_ms(torch, mx, spec, reps=10):
+    """One micro-batch's gradients (forward, backward, the host copy of
+    the gradients) on the card in this process, ms p50, with the agents'
+    deterministic settings (restored after)."""
+    from mxnet_tpu_torch.elastic import trainer
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        stepper = trainer.ModuleStepper(spec, ctx=mx.gpu(0))
+        stepper.install(spec.initial_params(spec.param_shapes()))
+        x, y = spec.batch_arrays(np.arange(spec.batch_size))
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stepper.grads(x, y)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    return float(np.percentile(ms, 50))
+
+
+def phase_elastic(torch, mx, card):
+    """Phase 24: elastic/ on one H100. A coordinator in this process for
+    each of three jobs of LeNet (`elastic_lenet_job`) and the agents as
+    real processes (`python -m mxnet_tpu_torch.elastic.agent --ctx gpu`)
+    on cuda:0, started together: (a) one worker uninterrupted; (b) two
+    workers, one SIGKILLed by its own kill:step:6; (c) one worker, joined
+    by a second (warm, held at its start gate) once 5 steps are done.
+    (b)'s and (c)'s final parameters must equal (a)'s bit for bit."""
+    import shutil
+    import signal
+
+    from mxnet_tpu_torch.elastic import stats as estats
+
+    res = {"card": card}
+    part = _parts(res)
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    probe = os.path.join(out, "probe")
+    os.makedirs(probe)
+    config = {}
+    spec = elastic_lenet_job(config)
+    env = dict(os.environ)
+    env.update(PYTHONPATH=root + os.pathsep + env.get("PYTHONPATH", ""),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               CHIP_SMOKE_ELASTIC_PROBE=probe)
+    for var in ("MXNET_EXEC_CACHE_DIR", "MXNET_TPU_FAULT_INJECT",
+                "MXNET_ELASTIC_LOGICAL_SHARDS", "MXNET_ELASTIC_MIN_WORLD"):
+        env.pop(var, None)
+    coords = {
+        "a": _elastic_coordinator("elastic24_a", 1,
+                                  os.path.join(out, "a"), config),
+        "b": _elastic_coordinator("elastic24_b", 2,
+                                  os.path.join(out, "b"), config),
+        "c": _elastic_coordinator("elastic24_c", 1,
+                                  os.path.join(out, "c"), config)}
+    gate = os.path.join(out, "c1.go")
+    ready = os.path.join(out, "c1.ready")
+    agents = {"a0": ("a", {}, []), "b0": ("b", {}, []),
+              "b1": ("b", {"MXNET_TPU_FAULT_INJECT":
+                           f"kill:step:{ELASTIC_KILL_STEP}"}, []),
+              "c0": ("c", {}, []),
+              "c1": ("c", {}, ["--ready-file", ready, "--start-gate", gate])}
+    procs, started, logs = {}, {}, {}
+    try:
+        for name, (job, extra_env, extra) in agents.items():
+            logs[name] = os.path.join(out, f"{name}.jsonl")
+            started[name] = time.perf_counter()
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "mxnet_tpu_torch.elastic.agent",
+                 "--connect", f"127.0.0.1:{coords[job].port}",
+                 "--entry", ELASTIC_ENTRY, "--config", json.dumps(config),
+                 "--name", name, "--consumed-log", logs[name],
+                 "--ctx", ELASTIC_DEVICE, *extra],
+                cwd=root, env=env | extra_env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, start_new_session=True)
+        pid_name = {p.pid: n for n, p in procs.items()}
+        hello, gate_at, ready_at = {}, None, None
+        deadline = time.perf_counter() + ELASTIC_TIMEOUT
+        while not all(c.wait(0) for c in coords.values()):
+            now = time.perf_counter()
+            check(now < deadline, "elastic: the jobs did not complete in "
+                  f"{ELASTIC_TIMEOUT} s: " + json.dumps(
+                      {k: c.status() for k, c in coords.items()},
+                      default=str)[:4000])
+            for job, c in coords.items():
+                for m in c.status()["members"]:
+                    hello.setdefault(pid_name.get(m["pid"]), now)
+            if ready_at is None and os.path.exists(ready):
+                ready_at = now
+            if (gate_at is None and ready_at is not None
+                    and coords["c"].status()["step"] >= ELASTIC_JOIN_STEP):
+                with open(gate, "w"):
+                    pass
+                gate_at = now
+            for name, p in procs.items():
+                if p.poll() not in (None, 0) and name != "b1":
+                    _, err = p.communicate()
+                    fail(f"elastic: agent {name} exited {p.returncode}: "
+                         f"{err[-3000:]}")
+            time.sleep(0.005)
+        part("jobs")
+        results = {}
+        for name, p in procs.items():
+            try:
+                so, se = p.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                so, se = p.communicate()
+            results[name] = (p.returncode, so, se)
+        snaps = {k: estats.elastic_stats()[c._name]
+                 for k, c in coords.items()}
+        finals = {k: c.final_params() for k, c in coords.items()}
+        members = {k: c.status()["members"] for k, c in coords.items()}
+        stamps = {k: list(c.stamps) for k, c in coords.items()}
+    finally:
+        for c in coords.values():
+            c.stop()
+        for p in procs.values():
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                p.communicate()
+    detail = {n: (rc, se[-1500:]) for n, (rc, _, se) in results.items()}
+    check(results["b1"][0] == -signal.SIGKILL,
+          f"elastic: (b)'s victim exited {results['b1'][0]}, not -9: "
+          f"{detail['b1']}")
+    for name, (rc, so, _) in results.items():
+        if name == "b1":
+            continue
+        last = so.strip().splitlines()[-1] if so.strip() else ""
+        check(rc == 0 and last == json.dumps({"result": "complete"}),
+              f"elastic: agent {name} exited {rc} with {last!r}: "
+              f"{detail[name]}")
+    # (b) and (c) end where (a) ends, bit for bit
+    for job in ("b", "c"):
+        for n, v in finals["a"].items():
+            check(np.array_equal(v, finals[job][n]),
+                  f"elastic: ({job})'s {n} differs from (a)'s by "
+                  f"{float(np.abs(v - finals[job][n]).max())!r}")
+    init = spec.initial_params(spec.param_shapes())
+    moved = {n: float(np.abs(finals["a"][n] - init[n]).max())
+             for n in init}
+    check(all(v > 0 for v in moved.values()),
+          f"elastic: a parameter did not move {moved}")
+    lines = {"a": _elastic_audit(spec, [logs["a0"]]),
+             "b": _elastic_audit(spec, [logs["b0"], logs["b1"]]),
+             "c": _elastic_audit(spec, [logs["c0"], logs["c1"]])}
+    with open(logs["b1"]) as f:
+        victim_lines = len(f.read().splitlines())
+    check(victim_lines == ELASTIC_KILL_STEP,
+          f"elastic: the victim logged {victim_lines} batches, not "
+          f"{ELASTIC_KILL_STEP} (one shard a step)")
+    check(snaps["b"]["transitions_shrink"] == 1
+          and snaps["b"]["transitions_grow"] == 0,
+          f"elastic: (b) {snaps['b']}")
+    check(snaps["c"]["transitions_grow"] == 1
+          and snaps["c"]["transitions_shrink"] == 0,
+          f"elastic: (c) {snaps['c']}")
+    check(snaps["a"]["transitions"] == 0, f"elastic: (a) {snaps['a']}")
+    for job, s in snaps.items():
+        check(s["digest_mismatches"] == 0,
+              f"elastic: ({job}) {s['digest_mismatches']} digest "
+              f"mismatches")
+        check(s["steps_completed"] == spec.total_steps,
+              f"elastic: ({job}) completed {s['steps_completed']} steps")
+        if s["transitions"]:
+            check(s["reshard_bytes_moved"] < s["reshard_bytes_full_restore"],
+                  f"elastic: ({job}) moved {s['reshard_bytes_moved']} "
+                  f"bytes, the full restore is "
+                  f"{s['reshard_bytes_full_restore']}")
+    for job, rows in members.items():
+        for row in rows:
+            check(row["trace_history"] == [],
+                  f"elastic: ({job}) member {row['wid']} traced after its "
+                  f"warmup: {row}")
+    probes = {}
+    for name, p in procs.items():
+        path = os.path.join(probe, f"{p.pid}.json")
+        check(os.path.exists(path), f"elastic: agent {name} wrote no probe")
+        with open(path) as f:
+            probes[name] = json.load(f)
+        check(probes[name]["devices"] == ["cuda"],
+              f"elastic: agent {name}'s parameters are on "
+              f"{probes[name]['devices']}")
+        check(probes[name]["traces"] == probes[name]["traces_after_warmup"],
+              f"elastic: agent {name} traced after its warmup "
+              f"{probes[name]}")
+    part("checks")
+    res["grads_ms_p50_in_process"] = _elastic_grads_ms(torch, mx, spec)
+    part("grads_in_process")
+    steps = {k: _elastic_step_times(v) for k, v in stamps.items()}
+    res["step_ms_p50"] = {k: float(np.percentile([s["ms"] for s in v], 50))
+                          for k, v in steps.items() if v}
+    res["grads_ms_p50"] = {k: float(np.percentile([s["grads_ms"]
+                                                   for s in v], 50))
+                           for k, v in steps.items() if v}
+    res["update_ms_p50"] = {k: float(np.percentile([s["update_ms"]
+                                                    for s in v], 50))
+                            for k, v in steps.items() if v}
+    # (a): one worker computes both shards' micro-batches a step; the
+    # rest of its step is the wire, the JSON codec, the coordinator's
+    # combine and the owners' update
+    res["wire_share_a"] = 1.0 - (spec.logical_shards
+                                 * res["grads_ms_p50_in_process"]
+                                 / res["step_ms_p50"]["a"])
+    res["start_to_hello_s"] = {n: hello[n] - started[n]
+                               for n in procs if n in hello}
+    res["start_to_ready_s_c1"] = (ready_at - started["c1"]
+                                  if ready_at else None)
+    res["gate_at_step"] = ELASTIC_JOIN_STEP
+    res["quiesce_wall_ms"] = {k: snaps[k]["quiesce_wall_ms_last"]
+                              for k in ("b", "c")}
+    res["reshard_bytes_moved"] = {k: snaps[k]["reshard_bytes_moved"]
+                                  for k in ("b", "c")}
+    res["reshard_bytes_full_restore"] = {
+        k: snaps[k]["reshard_bytes_full_restore"] for k in ("b", "c")}
+    res["examples_rekeyed"] = {k: snaps[k]["examples_rekeyed"]
+                               for k in ("b", "c")}
+    res["consumed_lines"] = lines
+    res["params"] = int(sum(v.size for v in init.values()))
+    res["total_steps"] = spec.total_steps
+    res["victim_rc"] = results["b1"][0]
+    res["moved_from_init_max"] = moved
+    res["phase_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(out, ignore_errors=True)
+    log("elastic: " + json.dumps(res))
+    log("phase 24 ok: LeNet trained by elastic agents on the card through "
+        "a SIGKILL shrink and a 1->2 re-grow to the uninterrupted run's "
+        "parameters, bit for bit")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -9267,6 +9762,7 @@ def main():
     dp.pop("mp_reference", None)
     pe = run("pipe_expert", phase_pipe_expert, torch, mx, card, dp)
     dp.pop("pe_reference", None)
+    elastic = run("elastic", phase_elastic, torch, mx, card)
 
     line = {"kernels": _kernel_line(
         rows, serving["launches"]["paged_attention_float"],

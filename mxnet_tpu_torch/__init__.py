@@ -54,6 +54,11 @@ mxnet_tpu. Its slices so far:
                      affinity routing, heal after a SIGKILL, drain and
                      hand-off, and the admin CLI
                      (`python -m mxnet_tpu_torch.fleet.cli`)
+  elastic            `elastic.ElasticCoordinator` and worker processes
+                     (`python -m mxnet_tpu_torch.elastic.agent`,
+                     `model.fit_elastic`) that train through a shrink and
+                     a re-grow to the uninterrupted run's parameters, bit
+                     for bit, on the card
   one-shot serving   `serving.ModelServer` (dynamic batching over a
                      grid of `Predictor` cells warmed at load, decoders
                      beside them), the `exec_cache` of bind plans, the
@@ -127,9 +132,14 @@ from .checkpoint_sharded import load_sharded, save_sharded
 from . import analysis  # noqa: F401
 from . import fault  # noqa: F401
 from . import fleet  # noqa: F401
+from . import elastic  # noqa: F401
+from . import visualization  # noqa: F401
+from . import visualization as viz  # noqa: F401
 from .base import MXNetError
 from .callback import Speedometer
-from .context import Context, cpu, current_context, default_context, gpu
+from .context import (Context, cpu, cpu_pinned, current_context,
+                      default_context, gpu, memory_stats, num_devices,
+                      set_memory_fraction)
 from .executor import Executor
 from .feed_forward import FeedForward
 from .ndarray import NDArray
@@ -144,16 +154,19 @@ __all__ = ["AttrScope", "Context", "Executor", "FeedForward", "Group",
            "__version__", "analysis", "attribute", "autograd", "base",
            "callback", "checkpoint_sharded",
            "context", "cpu",
-           "current_context", "data", "decoding", "default_context",
+           "cpu_pinned", "current_context", "data", "decoding",
+           "default_context", "elastic",
            "exec_cache",
            "executor",
            "executor_manager", "fault", "feed_forward", "fleet", "gpu",
            "image", "image_det", "init", "initializer", "io", "kv",
            "kvstore",
-           "lr_scheduler", "metric", "mod", "model",
+           "lr_scheduler", "memory_stats", "metric", "mod", "model",
            "models", "module", "monitor", "name", "nd", "ndarray",
+           "num_devices",
            "numerics", "operator", "ops", "optimizer", "parallel",
            "passes", "predictor", "profiler", "profiling", "random",
            "load_sharded", "recordio", "rnn", "rtc", "save_sharded",
-           "serving", "sharding",
-           "sym", "symbol", "telemetry", "utils"]
+           "serving", "set_memory_fraction", "sharding",
+           "sym", "symbol", "telemetry", "utils", "visualization",
+           "viz"]

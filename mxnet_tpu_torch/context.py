@@ -6,9 +6,16 @@ points run on CUDA unless the caller names another device, and they
 refuse to start when no CUDA device is present rather than carrying on
 on the CPU. `current_context()` is the innermost `with ctx:` scope, else
 `default_context()`, which is `gpu(0)`.
+
+`cpu_pinned()` names the host, as in the JAX package (torch pins the
+buffers that need it itself). `num_devices`, `memory_stats` and
+`set_memory_fraction` answer for and size the card's caching allocator;
+MXNET_TPU_MEM_FRACTION, read at import, is `set_memory_fraction`'s
+declarative form.
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import torch
@@ -19,8 +26,8 @@ from .base import MXNetError
 class Context:
     """Device handle: device type ('cpu' or 'gpu') and id."""
 
-    devtype2str = {1: "cpu", 2: "gpu"}
-    devstr2type = {"cpu": 1, "gpu": 2}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+    devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
 
     _default_ctx = threading.local()
 
@@ -40,7 +47,7 @@ class Context:
 
     def torch_device(self):
         """The torch.device; raises for gpu when CUDA is unavailable."""
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         return resolve_device(torch.device("cuda", self.device_id))
 
@@ -72,6 +79,12 @@ def cpu(device_id=0):
 
 def gpu(device_id=0):
     return Context("gpu", device_id)
+
+
+def cpu_pinned(device_id=0):
+    """Pinned-host context: the host's device, as `cpu()`."""
+    del device_id  # one host device
+    return Context("cpu_pinned", 0)
 
 
 def default_context():
@@ -108,7 +121,7 @@ def resolve_device(device=None):
     (explicitly or by default) and none is available, or for a card
     index beyond those this process sees."""
     if isinstance(device, Context):
-        device = ("cpu" if device.device_type == "cpu"
+        device = ("cpu" if device.device_type in ("cpu", "cpu_pinned")
                   else torch.device("cuda", device.device_id))
     dev = torch.device("cuda") if device is None else torch.device(device)
     if dev.type == "cuda":
@@ -123,3 +136,83 @@ def resolve_device(device=None):
                 f"{dev} is not reachable: this process sees "
                 f"{torch.cuda.device_count()} CUDA device(s)")
     return dev
+
+
+def num_devices(device_type="gpu"):
+    """Process-local device count for a device type: the CUDA cards this
+    process sees for "gpu", 1 for the host, 0 for "tpu"."""
+    if device_type == "gpu":
+        return torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+    if device_type in ("cpu", "cpu_pinned"):
+        return 1
+    if device_type == "tpu":
+        return 0
+    raise MXNetError(f"unknown device type {device_type!r}")
+
+
+_MEM_FRACTION = {}
+
+
+def set_memory_fraction(fraction, preallocate=None):
+    """Cap the share of each card's memory this process's caching
+    allocator may take (the JAX package's HBM pool knob, the reference's
+    MXNET_GPU_MEM_POOL_RESERVE), through
+    torch.cuda.set_per_process_memory_fraction. Must run BEFORE the
+    first device use in the process; afterwards it raises. The cap is
+    applied when CUDA initializes; `preallocate=True` then also reserves
+    the capped share in the allocator's cache at once.
+
+    Also reachable via env: MXNET_TPU_MEM_FRACTION (read at import).
+    """
+    if torch.cuda.is_initialized():
+        raise MXNetError(
+            "set_memory_fraction must be called before the first "
+            "device use (the caching allocator is sized when CUDA "
+            "initializes)")
+    fraction = float(fraction)
+    if not 0.0 < fraction <= 1.0:
+        raise MXNetError(f"memory fraction {fraction} is not in (0, 1]")
+    first = not _MEM_FRACTION
+    _MEM_FRACTION.update(fraction=fraction, preallocate=bool(preallocate))
+    if first:
+        # at CUDA's lazy initialization, with the latest values
+        torch.cuda._lazy_call(_apply_mem_fraction)
+
+
+def _apply_mem_fraction():
+    frac = _MEM_FRACTION["fraction"]
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.set_per_process_memory_fraction(frac, i)
+        if _MEM_FRACTION["preallocate"]:
+            total = torch.cuda.get_device_properties(i).total_memory
+            block = torch.empty(int(total * frac * 0.98), dtype=torch.uint8,
+                                device=torch.device("cuda", i))
+            del block   # the block stays in the allocator's cache
+
+
+def memory_stats(ctx=None):
+    """The card's allocator counters under the JAX package's keys:
+    `bytes_in_use` (allocated now), `peak_bytes_in_use` (allocated at
+    most since the process started or the peak was reset) and
+    `bytes_limit` (what the allocator may take: the card's memory times
+    the set fraction). {} for a host context, or a card this process
+    cannot reach."""
+    c = ctx if ctx is not None else current_context()
+    c = as_context(c) if not isinstance(c, Context) else c
+    if c.device_type != "gpu":
+        return {}
+    try:
+        dev = c.torch_device()
+    except MXNetError:
+        return {}
+    total = torch.cuda.get_device_properties(dev).total_memory
+    frac = _MEM_FRACTION.get("fraction", 1.0)
+    return {"bytes_in_use": int(torch.cuda.memory_allocated(dev)),
+            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(dev)),
+            "bytes_limit": int(total * frac)}
+
+
+if os.environ.get("MXNET_TPU_MEM_FRACTION") \
+        and not torch.cuda.is_initialized():
+    set_memory_fraction(float(os.environ["MXNET_TPU_MEM_FRACTION"]))

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import queue as _queue
 import threading
+import time
 
 import numpy as np
 import torch
@@ -236,6 +237,7 @@ class DataLoader(DataIter):
         self._cap = max(1, int(queue_cap if queue_cap is not None
                                else _utils.getenv("MXNET_DATA_QUEUE_CAP")))
         self._pos = 0
+        self.last_loaded_at = None  # perf_counter: the last batch decoded
         self._closed = False
         self._stop = threading.Event()
         self._threads = []
@@ -265,9 +267,11 @@ class DataLoader(DataIter):
                         self._sampler.batch_indices(k))
                     nbytes = sum(a.nbytes for part in payload
                                  for a in part)
+                    done = time.perf_counter()
                     while not stop_evt.is_set():
                         try:
-                            q.put((k, payload, nbytes), timeout=0.05)
+                            q.put((k, payload, nbytes, done),
+                                  timeout=0.05)
                             break
                         except _queue.Full:
                             continue  # backpressure: consumer is behind
@@ -286,8 +290,6 @@ class DataLoader(DataIter):
     def _halt(self, timeout=5.0):
         """Stop + join the current producers; drain queues so a blocked
         put wakes (the PrefetchingIter.close re-signal pattern)."""
-        import time
-
         self._stop.set()
         deadline = time.monotonic() + timeout
         for t in self._threads:
@@ -316,13 +318,14 @@ class DataLoader(DataIter):
                     f"loader worker died: {self._errors[0]!r}"
                 ) from self._errors[0]
             try:
-                k, payload, nbytes = q.get(timeout=0.1)
+                k, payload, nbytes, done = q.get(timeout=0.1)
                 break
             except _queue.Empty:
                 if self._closed:
                     raise DataPipelineError("DataLoader is closed")
         assert k == self._pos, f"out-of-order batch {k} != {self._pos}"
         self._pos += 1
+        self.last_loaded_at = done
         _stats.note_host_batch(nbytes)
         return payload
 

@@ -11,7 +11,8 @@ store and whether the optimizer runs on it, `_initialize_kvstore` puts
 each parameter into it, and each step's update either pushes the
 gradients and pulls the weights (`_update_params_on_kvstore`) or pushes
 and pulls the gradients and runs the updater on every device copy
-(`_update_params`). `fit_elastic` waits for the control-plane slice.
+(`_update_params`). `fit_elastic` joins an elastic job as a worker
+(`elastic/`).
 """
 from __future__ import annotations
 
@@ -145,7 +146,32 @@ def load_checkpoint(prefix, epoch):
 
 def fit_elastic(connect, entry, config=None, num_retries=None,
                 **worker_kwargs):
-    """Elastic training (docs/elastic.md) is not ported."""
-    raise MXNetError("fit_elastic waits for the control-plane slice "
-                     "(ROADMAP.md A.10, part 3): the port has no elastic "
-                     "coordinator")
+    """Train as one worker of an elastic job (docs/elastic.md).
+
+    The membership-tolerant sibling of `fit_auto_resume`: instead of
+    checkpoint/restart choreography, this process dials the
+    ElasticCoordinator at `connect` ('host:port'), is bootstrapped
+    with the authoritative params for its rank, and runs lock-step
+    global steps until the job completes — surviving every membership
+    change in between (another worker's preemption shrinks the world;
+    this process keeps training with re-keyed shard ownership).
+
+    Auto-rejoin is built in: a lost coordinator connection re-dials
+    within the MXNET_ELASTIC_REJOIN_MS budget (`rejoin_ms` kwarg
+    overrides) and rejoins as a fresh member through the normal
+    re-grow transition. Returns (reason, final_params) — reason
+    'complete' when the job ran to its last step. `ctx` (a worker
+    kwarg) is where the gradients are computed: the current context
+    when omitted, the card unless the CPU is named.
+
+    `num_retries` is accepted as an alias of `rejoin_ms` expressed in
+    heartbeat periods for drop-in symmetry with kvstore-style APIs.
+    """
+    from .elastic.agent import run_worker
+    from .elastic import config as _ecfg
+
+    rejoin_ms = worker_kwargs.pop("rejoin_ms", None)
+    if rejoin_ms is None and num_retries is not None:
+        rejoin_ms = int(num_retries) * _ecfg.heartbeat_ms()
+    return run_worker(connect, entry, config=config,
+                      rejoin_ms=rejoin_ms, **worker_kwargs)

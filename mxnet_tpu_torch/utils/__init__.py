@@ -32,6 +32,18 @@ def register_env(name, type_, default, help_):
     _ENV_REGISTRY[name] = EnvVar(name, type_, default, help_)
 
 
+def describe_env():
+    """All registered vars with current values (env_var.md analog)."""
+    lines = []
+    for spec in sorted(_ENV_REGISTRY.values(), key=lambda s: s.name):
+        cur = getenv(spec.name)
+        lines.append(
+            f"{spec.name}={cur!r} (default {spec.default!r}) — "
+            f"{spec.help}"
+        )
+    return "\n".join(lines)
+
+
 def getenv(name):
     """Typed read of a registered MXNET_* variable."""
     if name not in _ENV_REGISTRY:
@@ -394,6 +406,57 @@ register_env(
     "its requests re-admitted from the router's own token record.",
 )
 register_env(
+    "MXNET_ELASTIC_PORT", int, 0,
+    "elastic training: TCP port the ElasticCoordinator's membership "
+    "listener binds on 127.0.0.1 (worker agents dial it with a hello "
+    "frame; `fit_elastic` reads it when no --connect endpoint is "
+    "given). 0 = pick an ephemeral port and report it in status() — "
+    "the default for tests and single-host runs (docs/elastic.md).",
+)
+register_env(
+    "MXNET_ELASTIC_HEARTBEAT_MS", int, 200,
+    "elastic training: worker heartbeat period in ms. Every beat "
+    "carries the worker's last completed global step, its exec-cache "
+    "trace count (the zero-retrace evidence after a re-grow) and its "
+    "post-step param digest (cross-worker bitwise divergence shows "
+    "up as a counted mismatch, not silent drift). A worker silent "
+    "for 5 periods is declared dead and a shrink transition starts.",
+)
+register_env(
+    "MXNET_ELASTIC_QUIESCE_TIMEOUT_MS", int, 5000,
+    "elastic training: how long the coordinator waits at the quiesce "
+    "barrier for every surviving worker to acknowledge the step "
+    "boundary before declaring stragglers dead and resharding "
+    "without them. The quiesce wall (time actually spent here) is "
+    "reported per transition in elasticStats.",
+)
+register_env(
+    "MXNET_ELASTIC_LOGICAL_SHARDS", int, 0,
+    "elastic training: number of LOGICAL data/gradient shards the "
+    "job is cut into — fixed for the job lifetime so the training "
+    "arithmetic (which examples form global step N, the order their "
+    "micro-batch gradients combine in) is invariant to membership "
+    "and final params stay bit-identical across shrink/re-grow. "
+    "Physical workers own logical shards round-robin (shard s -> "
+    "rank s % world). 0 = use the world size at job start.",
+)
+register_env(
+    "MXNET_ELASTIC_MIN_WORLD", int, 1,
+    "elastic training: smallest membership the job may shrink to. A "
+    "death that would take the world below this parks the job at the "
+    "quiesce barrier (state persisted via the numerics run log) "
+    "until a joiner arrives instead of continuing under-provisioned.",
+)
+register_env(
+    "MXNET_ELASTIC_REJOIN_MS", int, 10000,
+    "elastic training: worker auto-rejoin budget. When a worker "
+    "loses its coordinator connection (coordinator restart, network "
+    "blip) `fit_elastic` keeps re-dialing the endpoint with fresh "
+    "hello frames for this many ms before giving up; a successful "
+    "re-dial joins as a fresh member and is bootstrapped through the "
+    "normal re-grow transition — no manual restart choreography.",
+)
+register_env(
     "MXNET_SERVING_MAX_BATCH", int, 8,
     "serving: largest batch bucket of the dynamic batcher; a bucket "
     "group flushes the moment it reaches this size.",
@@ -474,4 +537,11 @@ register_env(
     "data: default shuffle seed of ShardedSampler/DataLoader. The "
     "epoch permutation is a pure function of (seed, epoch), the JAX "
     "package's order bit for bit, so resume replays the same stream.",
+)
+register_env(
+    "MXNET_TPU_MEM_FRACTION", str, "",
+    "fraction of the card's memory this process's caching allocator "
+    "may take (torch.cuda.set_per_process_memory_fraction; the "
+    "JAX package's HBM pool knob). Read at import; "
+    "`context.set_memory_fraction` is the call form.",
 )

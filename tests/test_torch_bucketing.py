@@ -55,6 +55,26 @@ BUCKETS = [4, 8, 12]
 STEPS = 5
 
 
+# knobs that change which path a bind takes; an earlier test file in the
+# same process may have left them in os.environ (tests/test_pallas_codegen
+# .py writes MXNET_FUSION_INTERPRET=1 and MXNET_FUSION_CODEGEN there, and
+# its fixture only removes what was set before it ran)
+PATH_KNOBS = ("MXNET_GRAPH_PASSES", "MXNET_FUSION_CODEGEN",
+              "MXNET_FUSION_MIN_GROUP", "MXNET_FUSION_INTERPRET")
+
+
+@pytest.fixture(autouse=True)
+def _default_path_knobs(monkeypatch):
+    """Every test here binds under the default pass pipeline and
+    codegen, as it does in a process of its own: with
+    MXNET_FUSION_INTERPRET=1 left behind, the JAX package lowers the
+    cast_compute(bfloat16) group through its Pallas kernel in interpret
+    mode, which raises inside the JAX package ('Invalid dtype for
+    `swap`'), instead of through its lax twin."""
+    for var in PATH_KNOBS:
+        monkeypatch.delenv(var, raising=False)
+
+
 def _fresh():
     jbase._name_counters.clear()
     tbase._name_counters.clear()

@@ -7,10 +7,10 @@ does not import jax, so it runs on a machine with a card and no JAX:
 - DevicePrefetchIter under a busy consumer stream (a long kernel queued
   on it first) hands over 50 batches equal to the host's bit for bit,
   each read on the consumer stream the moment it is handed over.
-- With the stager's own copy stream held back by a long kernel, the
-  pinned ring has to wait for its copies, and no pinned slot is
-  refilled before the event of its previous copy has completed; the
-  batches are still the host's, bit for bit.
+- With the copy stream held back by a long kernel, the stager has to
+  wait for free pinned slots, and no slot is refilled before the event
+  of its previous copy has completed; the batches are still the
+  host's, bit for bit.
 - The bucketed optimizer update (MXNET_TPU_OPT_BUCKET=1) keeps every
   parameter a view into one flat buffer across captured replays (the
   same data_ptr), and trains as the per-parameter step does (1e-6 of
@@ -84,25 +84,24 @@ def test_pinned_slot_refilled_only_after_its_copy(card, monkeypatch):
     x, y = _arrays()
     want = _host_batches(x, y, 8)
     refills = []
-    orig_take = device_prefetch._PinnedRing.take
+    orig_buffers = device_prefetch._PinnedRing.buffers
 
-    def take(ring, tensors):
-        prev = ring.events[ring.next]
-        out = orig_take(ring, tensors)
+    def buffers(ring, i, tensors):
         # the slot is handed back for refilling: its last copy is done
-        refills.append(prev is None or prev.query())
-        return out
+        # (the consumer clears a slot's event only once it has completed)
+        refills.append(ring.events[i] is None and i not in ring.free)
+        return orig_buffers(ring, i, tensors)
 
-    orig_to_device = device_prefetch.DevicePrefetchIter._to_device
+    orig_issue = device_prefetch.DevicePrefetchIter._issue
 
-    def slow_copies(self, data, label):
+    def slow_copies(self, item):
         if self._stream is not None:
             with torch.cuda.stream(self._stream):
                 torch.cuda._sleep(20_000_000)   # the copy stream lags
-        return orig_to_device(self, data, label)
+        return orig_issue(self, item)
 
-    monkeypatch.setattr(device_prefetch._PinnedRing, "take", take)
-    monkeypatch.setattr(device_prefetch.DevicePrefetchIter, "_to_device",
+    monkeypatch.setattr(device_prefetch._PinnedRing, "buffers", buffers)
+    monkeypatch.setattr(device_prefetch.DevicePrefetchIter, "_issue",
                         slow_copies)
     with card:
         it = mxdata.make_pipeline(x, 8, label=y, seed=1, prefetch=2,

@@ -352,7 +352,9 @@ def test_kvstores_and_elastic_refused():
                     (type(j[0]).__name__, j[0].type)
     with pytest.raises(MXNetError, match="unknown KVStore"):
         tmx.model._create_kvstore("nonsense", 2, {})
-    with pytest.raises(MXNetError, match="A.10, part 3"):
+    # fit_elastic is ported: it resolves its job's entry first, and a
+    # bad entry is refused before any dial
+    with pytest.raises(MXNetError, match="bad elastic entry"):
         tmx.model.fit_elastic("localhost:1", None)
     X, y = _toy_data()
     model = tmx.FeedForward(_mlp(tmx), ctx=tmx.cpu(), num_epoch=1).fit(

@@ -23,12 +23,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # reference names the port does not bind yet -> the ROADMAP.md item
 MISSING = {
-    "elastic": "A.10, part 3",
     "engine": "A.11", "native": "A.11", "torch_bridge": "A.11",
     "th": "A.11", "caffe_bridge": "A.11",
-    "visualization": "A.13", "viz": "A.13",
-    "num_devices": "A.13", "memory_stats": "A.13",
-    "set_memory_fraction": "A.13", "cpu_pinned": "A.13",
     "tpu": "C (no TPU device in the port)",
 }
 
